@@ -9,8 +9,11 @@ Phases, each printing one JSON line with its wall seconds as it ends:
 1. build: the one nvcc call that builds every kernel (registers and spills
    per kernel from ptxas).
 2. kernels: K1-K4 against their plain PyTorch versions on the card, at the
-   shapes of the 2^18 prove below, exact equality; each kernel's time
-   (CUDA events, warmed up), its plain version's time and its bound.
+   shapes of the 2^18 prove below, and K5 (`point_double`), K2 without a
+   mask (`point_add`), K6-K8 (the batch-affine tree) at the shapes of the
+   MSM bench below (the Horner combine's one lane; level 0 of the affine
+   tree at 2^20 points for G1, 2^18 for G2), exact equality; each kernel's
+   time (CUDA events, warmed up), its plain version's time and its bound.
 3. prove_fixture: proves the committed MulChain(4, 1023) key
    (`tests/vectors/torch_pk_bn254_mulchain1023.npz`) at its committed
    (r, s); the proof must equal the JAX package's committed proof bit for
@@ -21,7 +24,16 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    checked exactly against the host pool oracle, h against
    h(x)·Z_H(x) = a(x)·b(x) − c(x) at a random x, and the proof against
    `assemble_proof` on the oracle sums. Launch counts of this prove go into
-   the kernel line.
+   the kernel line for K1-K4.
+5. prove_full_affine: the same prove with `affine_msm=True`; its proof must
+   equal prove_full's. The synthetic key has no setup behind it, so its
+   proofs cannot pass the pairing check: the fixture is proved again with
+   `affine_msm=True`, must equal the JAX proof and must verify.
+6. msm_bench: `snark_tpu_torch.bench` on BN254 G1 at 2^20 points, signed
+   c = 13, with the scan and with the batch-affine tree; G2 at 2^18 both
+   ways; G1 unsigned c = 12 with the scan; every result equal to the pool
+   oracle. Launch counts of this phase go into the kernel line for K5-K8
+   and K2 without a mask.
 
 The last line is `{"ok": true, "device": {...}}`, printed only when every
 phase passed; any failure exits non-zero. No card: exit 1, no result.
@@ -56,7 +68,11 @@ MULS = {
     "madd_g2": 13 * 3 + 4,  # Fq2 Karatsuba: 3 base muls each; decode 4
     "add_g1": 14,  # RCB15 Alg 7
     "add_g2": 14 * 3,
+    "dbl_g1": 9,  # RCB15 Alg 9
+    "dbl_g2": 9 * 3,
 }
+BENCH_LOG_N = {"g1": 20, "g2": 18}  # the msm_bench sizes
+BENCH_C = 13
 
 
 def phase_line(name: str, t0: float, **info) -> None:
@@ -256,6 +272,38 @@ def phase_build() -> dict:
     return {"nvcc_seconds": round(res.seconds, 3), "built": res.built, "ptxas": kernels}
 
 
+def kernel_row(name, source, replaces, ms, plain_ms, err, imads, nbytes) -> dict:
+    """One entry of the kernels line (its launches are filled in later)."""
+    b, by = bound_ms(imads, nbytes)
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b, "bound_by": by, "library_ms": None,
+    }
+
+
+def max_abs_err(a, b) -> int:
+    """Kernels and plain versions compute exact residues: 0, or fail."""
+    import torch
+
+    if torch.equal(a, b):
+        return 0
+    raise AssertionError("kernel and plain version differ")
+
+
+def plain_time(fn):
+    """-> (fn(), milliseconds) of one run between CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
 def phase_kernels(key: SyntheticKey, z_std, device) -> list[dict]:
     """K1-K4 against their plain versions at the 2^18 prove's shapes."""
     import torch
@@ -270,29 +318,6 @@ def phase_kernels(key: SyntheticKey, z_std, device) -> list[dict]:
     c = pick_window_plane_signed(z_std.shape[0])
     digits = signed_digits(z_std, c, 254)
     rows = []
-
-    def entry(name, route, source, replaces, ms, plain_ms, err, imads, nbytes):
-        b, by = bound_ms(imads, nbytes)
-        rows.append({
-            "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b, "bound_by": by, "library_ms": None,
-        })
-
-    def max_abs_err(a, b):
-        if torch.equal(a, b):
-            return 0
-        raise AssertionError("kernel and plain version differ")
-
-    def plain_time(fn):
-        torch.cuda.synchronize()
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = fn()
-        e1.record()
-        torch.cuda.synchronize()
-        return out, e0.elapsed_time(e1)
-
     for group, tbl in (("g1", pk.a_tbl), ("g2", pk.b_g2_tbl)):
         plan = PlaneMsm(c, 254, group)
         perm, start, length = plan._buckets(digits.t().contiguous())
@@ -300,7 +325,7 @@ def phase_kernels(key: SyntheticKey, z_std, device) -> list[dict]:
         i32 = lambda t: t.to(torch.int32).contiguous()  # noqa: E731
         lane_base = i32(torch.arange(plan.lanes, device=device) // plan.nb * n)
         # the main scan's runs: overflow past the spill cut is left out
-        length = i32(plan.spill_plan(length, n)[0])
+        length = i32(plan.spill_plan(length, max(1, n // plan.nb))[0])
         start = i32(start)
         acc0 = C.identity(plan.lanes, group, device)
         steps = int(length.max())
@@ -317,10 +342,10 @@ def phase_kernels(key: SyntheticKey, z_std, device) -> list[dict]:
         pt_bytes = out[0].numel() * 4
         # bytes: table, payloads and per-lane runs read once, accumulators
         # read and written once
-        entry(f"bucket_madd_rows_{group}", "cuda", "snark_tpu_torch/csrc/curve.cu",
+        rows.append(kernel_row(f"bucket_madd_rows_{group}", "snark_tpu_torch/csrc/curve.cu",
               "snark_tpu/ops/pallas_curve.py:754", ms, pms, err,
               adds * MULS[f"madd_{group}"] * IMAD_PER_MUL,
-              tbl.numel() + perm.numel() * 4 + plan.lanes * (2 * pt_bytes + 12))
+              tbl.numel() + perm.numel() * 4 + plan.lanes * (2 * pt_bytes + 12)))
 
         # K2 on the scan's output: one suffix-scan step (stride 1)
         q = torch.roll(out.view(plan.W, plan.nb, *out.shape[1:]), -1, dims=1).reshape(out.shape).contiguous()
@@ -334,10 +359,10 @@ def phase_kernels(key: SyntheticKey, z_std, device) -> list[dict]:
         ref2, pms2 = plain_time(lambda: C.masked_add_plain(out, q, mask, group))
         err2 = max_abs_err(o2, ref2)
         active = int(mask.sum())
-        entry(f"masked_add_{group}", "cuda", "snark_tpu_torch/csrc/curve.cu",
+        rows.append(kernel_row(f"masked_add_{group}", "snark_tpu_torch/csrc/curve.cu",
               "snark_tpu/ops/pallas_curve.py:716", ms2, pms2, err2,
               active * MULS[f"add_{group}"] * IMAD_PER_MUL,
-              plan.lanes * (3 * pt_bytes + 1))
+              plan.lanes * (3 * pt_bytes + 1)))
 
     # K3, K4 at the domain size
     n = pk.domain_size
@@ -352,21 +377,112 @@ def phase_kernels(key: SyntheticKey, z_std, device) -> list[dict]:
         max_abs_err(o3, ref3)
     ms3 = cuda_ms(lambda: N.ntt_stage(x, plan.inv_tw, s, n >> (s + 1), False))
     _, pms3 = plain_time(lambda: N.ntt_stage_plain(x, plan.inv_tw, s, n >> (s + 1), False))
-    entry("ntt_stage", "cuda", "snark_tpu_torch/csrc/ntt.cu",
+    rows.append(kernel_row("ntt_stage", "snark_tpu_torch/csrc/ntt.cu",
           "snark_tpu/ops/ntt_plane.py:158", ms3, pms3, 0,
-          (n // 2) * IMAD_PER_MUL, n * 64 + (1 << s) * 32)
+          (n // 2) * IMAD_PER_MUL, n * 64 + (1 << s) * 32))
 
     for mode in ("mul", "add", "hadamard"):
         o4 = N.field_ew(mode, x, y, plan.coset_scale_rev, plan.z_coset_inv)
         max_abs_err(o4, N.field_ew_plain(mode, x, y, plan.coset_scale_rev, plan.z_coset_inv))
     ms4 = cuda_ms(lambda: N.field_ew("mul", x, y))
     _, pms4 = plain_time(lambda: N.field_ew_plain("mul", x, y))
-    entry("field_ew", "cuda", "snark_tpu_torch/csrc/ntt.cu",
-          "snark_tpu/ops/ntt_plane.py:197", ms4, pms4, 0, n * IMAD_PER_MUL, n * 96)
+    rows.append(kernel_row("field_ew", "snark_tpu_torch/csrc/ntt.cu",
+          "snark_tpu/ops/ntt_plane.py:197", ms4, pms4, 0, n * IMAD_PER_MUL, n * 96))
     return rows
 
 
-def phase_prove_fixture(device) -> dict:
+def phase_kernels_msm(inputs: dict, device) -> tuple[list[dict], dict]:
+    """K5 and K2 without a mask at the Horner combine's shape (one lane),
+    K6-K8 at level 0 of the bench MSM's affine tree, against their plain
+    versions. -> (kernel rows, extra timings)."""
+    import torch
+
+    from snark_tpu_torch.bench import host_curve
+    from snark_tpu_torch.ops import curve as C
+    from snark_tpu_torch.ops import msm_affine as A
+    from snark_tpu_torch.ops.msm_plane import PlaneMsm
+
+    rows, extra = [], {}
+    curve_src, affine_src = "snark_tpu_torch/csrc/curve.cu", "snark_tpu_torch/csrc/affine.cu"
+    for group, inp in inputs.items():
+        K = C.GROUPS[group]
+        m2 = 1 if K == 1 else 3  # base muls per field mul
+        pt_bytes = 3 * K * 32
+        hc = host_curve(group)
+        p = C.points_to_limbs([inp.want], group, device)
+        q = C.points_to_limbs([hc.double(hc.generator)], group, device)
+        for name, fn, plain, muls, nbytes, src_line in (
+            ("point_double", lambda: C.point_double(p, group),
+             lambda: C.point_double_plain(p, group), MULS[f"dbl_{group}"], 2 * pt_bytes,
+             "snark_tpu/ops/pallas_curve.py:709"),
+            ("point_add", lambda: C.point_add(p, q, group),
+             lambda: C.point_add_plain(p, q, group), MULS[f"add_{group}"], 3 * pt_bytes,
+             "snark_tpu/ops/pallas_curve.py:702"),
+        ):
+            out = fn()
+            ref, pms = plain_time(plain)
+            rows.append(kernel_row(
+                f"{name}_{group}", curve_src, src_line, cuda_ms(fn, reps=20), pms,
+                max_abs_err(out, ref), muls * IMAD_PER_MUL, nbytes))
+
+        plan = PlaneMsm(inp.c, 254, group, signed=True, affine=True)
+        n = inp.n
+        perm, start, length = plan._buckets(inp.digits.t().contiguous())
+        blk_rows, sgn, _, _, B0 = A.AffineAccum(plan).blocks(
+            inp.table, perm, start, length, n, max(1, n // plan.nb))
+        del perm, start, length
+        M = blk_rows.shape[0] // 2
+        rb = blk_rows.shape[1]
+        el_bytes = K * 32
+
+        den, cls = A.affine_phase1(blk_rows, sgn, group)
+        ms = cuda_ms(lambda: A.affine_phase1(blk_rows, sgn, group))
+        (pden, pcls), pms = plain_time(lambda: A.affine_phase1_plain(blk_rows, sgn, group))
+        err = max(max_abs_err(den, pden), max_abs_err(cls, pcls))
+        del pden, pcls
+        rows.append(kernel_row(
+            f"affine_phase1_{group}", affine_src, "snark_tpu/ops/msm_affine.py:329", ms, pms, err,
+            M * 4 * K * IMAD_PER_MUL, M * (2 * rb + 2 + el_bytes + 1)))
+
+        h = M // 2
+        a, b = den[:h], den[h:]
+        tm = A.affine_tree_mul(a, b, group)
+        ms = cuda_ms(lambda: A.affine_tree_mul(a, b, group))
+        ptm, pms = plain_time(lambda: A.affine_tree_mul_plain(a, b, group))
+        err = max_abs_err(tm, ptm)
+        root = den[:1].contiguous()
+        err = max(err, max_abs_err(A.affine_inverse(root, group), A.affine_inverse_plain(root, group)))
+        extra[f"root_inverse_ms_{group}"] = cuda_ms(lambda: A.affine_inverse(root, group))
+        del tm, ptm
+        rows.append(kernel_row(
+            f"affine_tree_mul_{group}", affine_src, "snark_tpu/ops/msm_affine.py:358", ms, pms, err,
+            h * m2 * IMAD_PER_MUL, 3 * h * el_bytes))
+
+        torch.cuda.synchronize()
+        t = time.time()
+        dinv = A.batch_inverse(den, group)
+        torch.cuda.synchronize()
+        extra[f"batch_inverse_ms_{group}"] = (time.time() - t) * 1e3
+        out = A.affine_phase3(blk_rows, sgn, dinv, cls, group)
+        ms = cuda_ms(lambda: A.affine_phase3(blk_rows, sgn, dinv, cls, group))
+        ref, pms = plain_time(lambda: A.affine_phase3_plain(blk_rows, sgn, dinv, cls, group))
+        err = max_abs_err(out, ref)
+        counts = torch.bincount(cls.to(torch.int64), minlength=5).tolist()
+        computed = counts[A.ADD] + counts[A.DOUBLE]
+        extra[f"level0_classes_{group}"] = dict(zip(("add", "double", "dead", "copy_l", "copy_r"), counts))
+        extra[f"level0_pairs_{group}"] = M
+        # decode 4K and encode 2K base muls per pair; λ, λ², λ·(x1 − x3) per
+        # computed pair; x1² per double
+        muls = M * 6 * K + (3 * computed + counts[A.DOUBLE]) * m2
+        rows.append(kernel_row(
+            f"affine_phase3_{group}", affine_src, "snark_tpu/ops/msm_affine.py:340", ms, pms, err,
+            muls * IMAD_PER_MUL, M * (2 * rb + 2 + el_bytes + 1 + rb)))
+        del blk_rows, sgn, den, cls, dinv, out, ref
+        torch.cuda.empty_cache()
+    return rows, extra
+
+
+def phase_prove_fixture(device, affine_msm: bool = False) -> dict:
     from snark_tpu_torch.fields.params import BN254
     from snark_tpu_torch.groth16 import Groth16, ProvingKey
     from snark_tpu_torch.models import MulChainCircuit
@@ -375,7 +491,7 @@ def phase_prove_fixture(device) -> dict:
     with open(FIXTURE_PROOF) as f:
         want = json.load(f)
     pk = ProvingKey.load(FIXTURE_PK, device=device)
-    g16 = Groth16(device=device)
+    g16 = Groth16(device=device, affine_msm=affine_msm)
     z = MulChainCircuit(seed=4, n=1023).assignment(BN254.fr.modulus)
     t = time.time()
     proof = g16.prove_from_assignment(pk, z, int(want["r"]), int(want["s"]))
@@ -388,7 +504,8 @@ def phase_prove_fixture(device) -> dict:
     return {"equal_to_jax_proof": True, "verifies": True, "prove_seconds": round(prove_s, 3)}
 
 
-def phase_prove_full(key: SyntheticKey, z: list[int], device) -> tuple[dict, dict]:
+def phase_prove_full(key: SyntheticKey, z: list[int], device, affine_msm: bool = False):
+    """-> (phase info, launch counts of the prove, the proof)."""
     import torch
 
     from snark_tpu_torch import _native
@@ -398,7 +515,7 @@ def phase_prove_full(key: SyntheticKey, z: list[int], device) -> tuple[dict, dic
     pk = key.pk
     rng = random.Random(2024)
     r, s = rng.randrange(FR.p), rng.randrange(FR.p)
-    g16 = Groth16(device=device)
+    g16 = Groth16(device=device, affine_msm=affine_msm)
     g16.ntt_plan(pk.domain_size)  # host-built twiddles: set-up, not prove time
     torch.cuda.reset_peak_memory_stats()
     _native.reset_launches()
@@ -430,8 +547,43 @@ def phase_prove_full(key: SyntheticKey, z: list[int], device) -> tuple[dict, dic
         "stage_ms": {k: round(v, 3) for k, v in run.stage_ms.items()},
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "msm_exact": True, "h_identity": True, "proof_equals_assembly": True,
+        "launches": {k: v for k, v in launches.items() if v},
     }
-    return info, launches
+    return info, launches, proof
+
+
+def phase_msm_bench(inputs: dict, smi: str) -> tuple[dict, dict]:
+    """`snark_tpu_torch.bench` runs, each exact against the pool oracle.
+    -> (phase info, launch counts of the whole phase)."""
+    import torch
+
+    from snark_tpu_torch import _native
+    from snark_tpu_torch import bench as B
+
+    runs = [("g1", True, False), ("g1", True, True), ("g2", True, False), ("g2", True, True),
+            ("g1", False, False)]
+    total = dict.fromkeys(_native.LAUNCHES, 0)
+    out = []
+    for group, signed, affine in runs:
+        inp = inputs[group] if signed else B.make_inputs(
+            BENCH_LOG_N[group], signed=False, group=group, device=inputs[group].table.device)
+        _native.reset_launches()
+        rec = B.run(inp, affine=affine, iters=2)
+        launches = {k: v for k, v in _native.LAUNCHES.items() if v}
+        for k, v in launches.items():
+            total[k] += v
+        d = rec["detail"]
+        if not d["correct"]:
+            raise AssertionError(f"msm_bench {group} signed={signed} affine={affine}: wrong result")
+        if affine and not d["affine_engaged"]:
+            raise AssertionError("msm_bench: the affine tree did not engage")
+        d["launches"] = launches
+        d["nvidia_smi"] = smi
+        out.append(rec)
+        print(json.dumps({"msm_bench": rec}), flush=True)
+        del inp
+        torch.cuda.empty_cache()
+    return {"runs": len(out), "all_correct": True}, total
 
 
 def main() -> int:
@@ -452,6 +604,7 @@ def main() -> int:
     t0 = time.time()
     phase_line("build", t0, **phase_build())
 
+    from snark_tpu_torch import bench as B
     from snark_tpu_torch.fields.limbs import FR
     from snark_tpu_torch.fields.params import BN254
 
@@ -459,25 +612,43 @@ def main() -> int:
     key = SyntheticKey(FULL_N, seed=1, device=device)
     z = key.circuit.assignment(BN254.fr.modulus)
     z_std = FR.tensor(z, device, mont=False)
-    phase_line("setup", t0, constraints=FULL_N, m=len(z), domain=key.pk.domain_size)
+    inputs = {g: B.make_inputs(BENCH_LOG_N[g], signed=True, c=BENCH_C, group=g, device=device)
+              for g in ("g1", "g2")}
+    phase_line("setup", t0, constraints=FULL_N, m=len(z), domain=key.pk.domain_size,
+               bench_points=BENCH_LOG_N)
 
     t0 = time.time()
     rows = phase_kernels(key, z_std, device)
-    phase_line("kernels", t0, all_equal=True, kernels=rows)
+    msm_rows, extra = phase_kernels_msm(inputs, device)
+    phase_line("kernels", t0, all_equal=True, kernels=rows + msm_rows, **extra)
 
     t0 = time.time()
     phase_line("prove_fixture", t0, **phase_prove_fixture(device))
 
     t0 = time.time()
-    info, launches = phase_prove_full(key, z, device)
+    info, launches, proof = phase_prove_full(key, z, device)
     phase_line("prove_full", t0, **info)
+
+    t0 = time.time()
+    info_a, _, proof_a = phase_prove_full(key, z, device, affine_msm=True)
+    if proof_a != proof:
+        raise AssertionError("the affine prove's proof differs from prove_full's")
+    fixture_a = phase_prove_fixture(device, affine_msm=True)
+    phase_line("prove_full_affine", t0, equals_prove_full=True, fixture=fixture_a, **info_a)
+
+    t0 = time.time()
+    info_b, bench_launches = phase_msm_bench(inputs, smi)
+    phase_line("msm_bench", t0, **info_b, launches={k: v for k, v in bench_launches.items() if v})
 
     for row in rows:
         row["launches"] = launches[row["name"]]
+    for row in msm_rows:
+        row["launches"] = bench_launches[row["name"]]
+    for row in rows + msm_rows:
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} was not launched on the main path")
     print(smi, flush=True)
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels": rows + msm_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,9 +1,10 @@
 """Build and bind the port's CUDA kernels.
 
-All sources under `csrc/` are compiled by one `nvcc` call into one shared
-library with a plain C interface, bound with `ctypes`. The library lands in
-`_build/<hash of the sources>/`, so an edit to any source rebuilds it and an
-unchanged tree reuses it. Nothing here runs at import: the first kernel
+Each `.cu` source under `csrc/` is compiled by its own `nvcc` process, all
+started together, and one more `nvcc` call links the objects into one
+shared library with a plain C interface, bound with `ctypes`. The library
+lands in `_build/<hash of the sources>/`, so an edit to any source rebuilds
+it and an unchanged tree reuses it. Nothing here runs at import: the first kernel
 launch builds.
 
 Every pointer and the stream travel as `ctypes.c_void_p`, every count as
@@ -29,7 +30,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 LIB_NAME = "libsnark_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -44,15 +45,28 @@ _SIGNATURES = {
     "snark_ntt_stage": [_P, _P, _P, _I, _I, _I, _I, _P],
     # mode, out, a, b, c, d, n, b_bcast, stream
     "snark_field_ew": [_I, _P, _P, _P, _P, _P, _I, _I, _P],
+    # group, p, out, lanes, stream
+    "snark_point_double": [_I, _P, _P, _I, _P],
+    # group, rows, row_bytes, sgn, den, cls, pairs, stream
+    "snark_affine_phase1": [_I, _P, _I, _P, _P, _P, _I, _P],
+    # group, mode, a, b, out, n, stream
+    "snark_affine_tree_mul": [_I, _I, _P, _P, _P, _I, _P],
+    # group, rows, row_bytes, sgn, dinv, cls, out, pairs, stream
+    "snark_affine_phase3": [_I, _P, _I, _P, _P, _P, _P, _I, _P],
 }
 
 # Launch counts, one per kernel instance (the curve kernels per group):
-# each wrapper adds one where it launches.
+# each wrapper adds one where it launches. `point_add` is K2 launched
+# without a mask by its own wrapper.
 LAUNCHES = {
-    "bucket_madd_rows_g1": 0,
-    "bucket_madd_rows_g2": 0,
-    "masked_add_g1": 0,
-    "masked_add_g2": 0,
+    **{
+        f"{k}_{g}": 0
+        for k in (
+            "bucket_madd_rows", "masked_add", "point_add", "point_double",
+            "affine_phase1", "affine_tree_mul", "affine_phase3",
+        )
+        for g in ("g1", "g2")
+    },
     "ntt_stage": 0,
     "field_ew": 0,
 }
@@ -104,9 +118,10 @@ class BuildResult:
 
 
 def build() -> BuildResult:
-    """Compile every source with one nvcc call, unless this tree's library
-    already exists. Writes to a temporary name and renames, so a process
-    that dies mid-build leaves no half-written library behind."""
+    """Compile every source, unless this tree's library already exists:
+    one `nvcc -c` per `.cu`, all running at once, then one link. Writes to
+    a temporary name and renames, so a process that dies mid-build leaves
+    no half-written library behind."""
     out_dir = os.path.join(BUILD_DIR, source_hash())
     lib = os.path.join(out_dir, LIB_NAME)
     log_path = os.path.join(out_dir, "nvcc.log")
@@ -114,15 +129,37 @@ def build() -> BuildResult:
         log = open(log_path).read() if os.path.isfile(log_path) else ""
         return BuildResult(lib, 0.0, log, built=False)
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cus = [s for s in sources() if s.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=CSRC)
+    jobs = []
+    for cu in (s for s in sources() if s.endswith(".cu")):
+        obj = os.path.join(out_dir, f"{os.path.basename(cu)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, cu]
+        proc = subprocess.Popen(
+            cmd, cwd=CSRC, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        jobs.append((obj, proc))
+    try:
+        log, failed = "", []
+        for obj, proc in jobs:
+            out, _ = proc.communicate()
+            log += out
+            if proc.returncode != 0:
+                failed.append(proc.returncode)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed}):\n{log}")
+        tmp = f"{lib}.{tag}"
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp]
+        proc = subprocess.run(link + [o for o, _ in jobs], capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+    finally:
+        for obj, _ in jobs:
+            if os.path.exists(obj):
+                os.remove(obj)
     seconds = time.time() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
     with open(log_path, "w") as f:
         f.write(log)
     os.replace(tmp, lib)

@@ -33,6 +33,7 @@ LIMBS = 8  # u32 limbs per element
 DIGITS = 16  # 16-bit digits per element in the plain arithmetic
 R_BITS = 32 * LIMBS
 _MASK16 = 0xFFFF
+_FEW_LANES = 256  # below this many lanes a carry runs as whole-array passes
 
 
 class Field:
@@ -98,7 +99,8 @@ class Field:
 
         return {
             "p9": digits(self.p, LIMBS + 1, 32),
-            "p_band": _band(digits(self.p, DIGITS, 16), DIGITS, 2 * DIGITS),
+            "n16": self.n_prime & _MASK16,
+            "p_band": _band(digits(self.p, DIGITS, 16), 2 * DIGITS, DIGITS),
             "np_band": _band(digits(self.n_prime, DIGITS, 16), DIGITS, DIGITS),
         }
 
@@ -139,53 +141,42 @@ def from_words(w: torch.Tensor) -> torch.Tensor:
     return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
 
 
-def _split16(w: torch.Tensor) -> torch.Tensor:
-    """(N, k) words -> (N, 2k) float64 16-bit digits (exact)."""
-    d = torch.stack([w & _MASK16, w >> 16], dim=-1)
-    return d.reshape(w.shape[0], -1).to(torch.float64)
-
-
-def _join16(c: torch.Tensor) -> torch.Tensor:
-    """(N, 2k) float64 digit columns (each < 2^37) -> (N, k) int64 words
-    (each < 2^54, not yet carried)."""
-    c = c.to(torch.int64).reshape(c.shape[0], -1, 2)
-    return c[..., 0] + (c[..., 1] << 16)
-
-
 def _band(digits: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     """Constant 16-bit digits -> (rows, cols) float64 matrix M with
-    (x @ M)[k] = sum_i x_i * digits[k - i] (a digit convolution)."""
+    (M @ x)[k] = sum_i digits[k - i] * x_i (a digit convolution)."""
     n = digits.shape[0]
     m = torch.zeros((rows, cols), dtype=torch.float64, device=digits.device)
-    for i in range(rows):
-        hi = max(0, min(n, cols - i))
-        m[i, i : i + hi] = digits[:hi].to(torch.float64)
+    for i in range(cols):
+        hi = max(0, min(n, rows - i))
+        m[i : i + hi, i] = digits[:hi].to(torch.float64)
     return m
 
 
+def _carry_rows(t: torch.Tensor, bits: int) -> torch.Tensor:
+    """In place on (k, ...) rows of `bits`-bit digits: leaves every row but
+    the last in [0, 2^bits); the last keeps the overflow and the sign (a
+    borrow makes it negative). Few lanes: whole-array passes until nothing
+    carries (fewer ops); many lanes: one pass from row 0 up (no syncs)."""
+    mask = (1 << bits) - 1
+    if t[0].numel() <= _FEW_LANES:
+        while True:
+            c = t[:-1] >> bits
+            if not bool(c.any()):
+                return t
+            t[:-1] &= mask
+            t[1:] += c
+    for i in range(t.shape[0] - 1):
+        c = t[i] >> bits
+        t[i] &= mask
+        t[i + 1] += c
+    return t
+
+
 def _carry(t: torch.Tensor) -> torch.Tensor:
-    """Propagate carries (and borrows) until every word but the last is in
-    [0, 2^32); the last word keeps the overflow and the sign."""
-    while True:
-        c = t[..., :-1] >> 32
-        if not bool(c.any()):
-            return t
-        t = torch.cat([t[..., :-1] & _MASK32, t[..., -1:]], dim=-1)
-        t[..., 1:] += c
-
-
-def _mul_wide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(N, 8) x (N, 8) words -> (N, 16) uncarried product words: 32-bit
-    words of a times 16-bit digits of b, each column sum below 2^51."""
-    n = a.shape[0]
-    b16 = torch.stack([b & _MASK16, b >> 16], dim=-1).reshape(n, DIGITS)
-    p = torch.zeros((n, 2 * DIGITS), dtype=torch.int64, device=a.device)
-    for i in range(LIMBS):
-        p[:, 2 * i : 2 * i + DIGITS] += a[:, i : i + 1] * b16
-    c = p >> 16  # one carry pass so that the words below fit int64
-    p = p & _MASK16
-    p[:, 1:] += c[:, :-1]
-    return p[:, 0::2] + (p[:, 1::2] << 16)
+    """(..., k) words -> carried words: every word but the last in
+    [0, 2^32), the last with the overflow and the sign. Works on a copy."""
+    tt = t.movedim(-1, 0).clone(memory_format=torch.contiguous_format)
+    return _carry_rows(tt, 32).movedim(0, -1)
 
 
 def _cond_sub_p(x: torch.Tensor, c: dict) -> torch.Tensor:
@@ -194,16 +185,60 @@ def _cond_sub_p(x: torch.Tensor, c: dict) -> torch.Tensor:
     return torch.where((d[:, -1] < 0)[:, None], x, d)[:, :LIMBS]
 
 
+def _digits16(w: torch.Tensor) -> torch.Tensor:
+    """(k, N) words -> (2k, N) float64 16-bit digits, low digit first."""
+    return torch.stack([w & _MASK16, w >> 16], dim=1).reshape(-1, w.shape[1]).to(torch.float64)
+
+
+def _words32(d: torch.Tensor) -> torch.Tensor:
+    """(2k, N) float64 digit sums (each below 2^37) -> (k, N) int64 words
+    (each below 2^54, not yet carried)."""
+    d = d.to(torch.int64)
+    return d[0::2] + (d[1::2] << 16)
+
+
 def mont_mul_w(a: torch.Tensor, b: torch.Tensor, f: Field) -> torch.Tensor:
-    """Montgomery product a·b·2^-256 mod p on (N, 8) canonical words."""
+    """Montgomery product a·b·2^-256 mod p on (N, 8) canonical words.
+
+    Works on rows, (words, N): T = a·b from 32-bit words of a times 16-bit
+    digits of b (each partial sum below 2^51); m = T·N' mod R and m·p as
+    float64 products of 16-bit digits with constant band matrices (sums
+    below 2^37, exact); u = (T + m·p)/R < 2p, then one conditional
+    subtraction of p. Each carry is one pass over the words."""
     c = f._consts(a.device)
-    zero = torch.zeros((a.shape[0], 1), dtype=torch.int64, device=a.device)
-    t = _carry(torch.cat([_mul_wide(a, b), zero], dim=1))  # (N, 17) = ab
-    m = _join16(_split16(t[:, :LIMBS]) @ c["np_band"])  # T·N' (mod R)
-    m = _carry(torch.cat([m, zero], dim=1))[:, :LIMBS]
-    mp = _join16(_split16(m) @ c["p_band"])
-    u = _carry(t + torch.cat([mp, zero], dim=1))  # T + m·p = 0 mod R
-    return _cond_sub_p(u[:, LIMBS:], c)
+    n = a.shape[0]
+    A, B = a.t().contiguous(), b.t()
+    b16 = torch.empty((DIGITS, n), dtype=torch.int64, device=a.device)
+    b16[0::2] = B & _MASK16
+    b16[1::2] = B >> 16
+    t = torch.zeros((2 * DIGITS + 2, n), dtype=torch.int64, device=a.device)
+    for i in range(LIMBS):
+        t[2 * i : 2 * i + DIGITS] += A[i] * b16
+    carry = t >> 16  # one pass in 16 bits, so that the words below fit
+    t &= _MASK16
+    t[1:] += carry[:-1]
+    w = _carry_rows(t[0::2] + (t[1::2] << 16), 32)  # T = a·b: 17 words
+    m = _carry_rows(_words32(c["np_band"] @ _digits16(w[:LIMBS])), 32)
+    m[-1] &= _MASK32  # T·N' mod R
+    w[: 2 * LIMBS] += _words32(c["p_band"] @ _digits16(m))
+    u = _carry_rows(w, 32)[LIMBS:]  # T + m·p = 0 mod R; u < 2p
+    d = _carry_rows(u - c["p9"][:, None], 32)
+    return torch.where(d[-1] < 0, u, d)[:LIMBS].t().contiguous()
+
+
+def div_r16_words(w: torch.Tensor, f: Field) -> torch.Tensor:
+    """(..., 8) canonical words of x -> canonical words of x·2^-16 mod p:
+    one 16-bit Montgomery reduction step, (x + m·p) / 2^16 with
+    m = −x·p^-1 mod 2^16, then one conditional subtraction."""
+    c = f._consts(w.device)
+    shape = w.shape
+    w = w.reshape(-1, LIMBS)
+    m = ((w[:, 0] & _MASK16) * c["n16"]) & _MASK16
+    zero = torch.zeros((w.shape[0], 1), dtype=torch.int64, device=w.device)
+    s = _carry(torch.cat([w, zero], dim=1) + m[:, None] * c["p9"])  # = 0 mod 2^16
+    r = (s >> 16) | ((torch.roll(s, -1, dims=1) & _MASK16) << 16)
+    r[:, -1] = s[:, -1] >> 16
+    return _cond_sub_p(r, c).reshape(shape)
 
 
 def add_w(a: torch.Tensor, b: torch.Tensor, f: Field) -> torch.Tensor:

@@ -11,7 +11,10 @@ branch (m >= 2048 variables):
    then canonical standard form (K4);
 4. signed c-bit window digits of z and h;
 5. five bucket MSMs (K1 scan, K2 folds): A, B1, L, H in G1 and B in G2,
-   each finished by a host Horner combine;
+   each finished by a host Horner combine; with `affine_msm=True` the
+   buckets of an MSM with at least 8 elements per bucket are accumulated
+   by the batch-affine tree (K6-K8, `ops/msm_affine.py`) instead, as the
+   reference does under SNARK_TPU_MSM_AFFINE=1;
 6. `assemble_proof` on the host. `verify` pairs on the host.
 
 Proofs follow the arkworks conventions (eprint 2016/260):
@@ -181,13 +184,17 @@ class ProveRun:
 
 
 class Groth16:
-    """Groth16 over BN254 on one device (`"cuda"` by default)."""
+    """Groth16 over BN254 on one device (`"cuda"` by default). The MSMs
+    accumulate their buckets with the scan, or with the batch-affine tree
+    where it applies when `affine_msm` is set (off by default, as in the
+    reference)."""
 
-    def __init__(self, curve: CurveParams = BN254, device="cuda"):
+    def __init__(self, curve: CurveParams = BN254, device="cuda", affine_msm: bool = False):
         if curve is not BN254:
             raise ValueError("only BN254 is ported")
         self.curve = curve
         self.device = resolve_device(device)
+        self.affine_msm = affine_msm
         self.hg1 = host_g1(curve)
         self.hg2 = host_g2(curve)
         self.pairing = get_pairing(curve)
@@ -203,7 +210,9 @@ class Groth16:
     def msm_plan(self, c: int, group: str) -> PlaneMsm:
         key = (c, group)
         if key not in self._msm:
-            self._msm[key] = PlaneMsm(c, self.curve.fr.num_bits, group)
+            self._msm[key] = PlaneMsm(
+                c, self.curve.fr.num_bits, group, signed=True, affine=self.affine_msm
+            )
         return self._msm[key]
 
     # ----- the stages of the prover ------------------------------------------
@@ -239,7 +248,7 @@ class Groth16:
             ("L", g1, pk.l_tbl, z_digits[ni:], self.hg1),
             ("H", g1, pk.h_tbl, h_digits, self.hg1),
         ):
-            sums[name] = plan.msm(tbl, digits.contiguous(), hc)
+            sums[name] = plan.msm_host(tbl, digits.contiguous(), hc)
             tick(f"msm {name}")
         return sums
 

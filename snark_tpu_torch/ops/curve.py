@@ -1,6 +1,7 @@
-"""Curve kernels K1 (`bucket_madd_rows`) and K2 (`masked_add`), their plain
-PyTorch versions, and the codecs between host points, the reference's u8
-row tables and the port's projective limb tensors.
+"""Curve kernels K1 (`bucket_madd_rows`), K2 (`masked_add`, and
+`point_add`: K2 with no mask) and K5 (`point_double`), their plain PyTorch
+versions, and the codecs between host points, the reference's u8 row
+tables and the port's projective limb tensors.
 
 A batch of points is an int32 tensor (lanes, 3, K, 8): projective X, Y, Z,
 each K base-field elements (K = 1 for G1 over Fq, 2 for G2 over Fq2) of 8
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from .. import _native
-from ..fields.limbs import FQ, add_words, from_words, mont_mul_words, sub_words
+from ..fields.limbs import FQ, add_words, div_r16_words, from_words, mont_mul_words, sub_words
 from ..fields.params import BN254
 from ..fields.towers import Fq2 as HostFq2
 
@@ -148,9 +149,6 @@ class _PlainCurve:
         b = [BN254.b] if self.K == 1 else list(BN254.b2)
         b3 = FQ.tensor([3 * v % q for v in b], device).to(torch.int64) & 0xFFFFFFFF
         self.b3 = b3.reshape(1, self.K, 8)
-        self.row_c = (
-            FQ.const(1 << 240, device, mont=False).to(torch.int64) & 0xFFFFFFFF
-        )
 
     def add(self, a, b):
         return add_words(a, b, FQ)
@@ -215,15 +213,27 @@ class _PlainCurve:
         y3p = self.sub(m6, self.add(t0, t2))
         return self._tail(t0, t1, t3, t4, y3p, t2)
 
+    def pdbl(self, P):
+        """Alg 9: 2P, P (N, 3, K, 8)."""
+        X, Y, Z = P[:, 0], P[:, 1], P[:, 2]
+        t0, t1, zz, xy = self.mul_many([(Y, Y), (Y, Z), (Z, Z), (X, Y)])
+        (t2,) = self.mul_many([(self.b3, zz)])
+        z8 = self.add(t0, t0)
+        z8 = self.add(z8, z8)
+        z8 = self.add(z8, z8)
+        t0n = self.sub(t0, self.add(self.add(t2, t2), t2))
+        x3, z3, m, xyn = self.mul_many(
+            [(t2, z8), (t1, z8), (t0n, self.add(t0, t2)), (t0n, xy)]
+        )
+        return torch.stack([self.add(xyn, xyn), self.add(x3, m), z3], dim=1)
+
     def decode_rows(self, rows: torch.Tensor):
         """(M, row_bytes) uint8 -> (qx, qy) (M, K, 8) words at R = 2^256."""
         K = self.K
-        comps = [
-            rows[:, ROW_DIGITS * c : ROW_DIGITS * c + 32].contiguous().view(torch.int32)
-            for c in range(2 * K)
-        ]
-        w = torch.stack(comps, dim=1).to(torch.int64) & 0xFFFFFFFF  # (M, 2K, 8)
-        w = mont_mul_words(w, self.row_c, FQ)
+        b = rows[:, : 2 * K * ROW_DIGITS].reshape(-1, 2 * K, ROW_DIGITS)[:, :, :32]
+        b = b.to(torch.int64).reshape(-1, 2 * K, 8, 4)
+        w = b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)  # (M, 2K, 8)
+        w = div_r16_words(w, FQ)  # x·2^272 -> x·2^256 (K1 multiplies by 2^240)
         return w[:, :K], w[:, K:]
 
 
@@ -267,6 +277,16 @@ def masked_add_plain(p, q, mask, group: str) -> torch.Tensor:
     if lanes.numel():
         out[lanes] = pc.padd(out[lanes], _words(q[lanes]))
     return from_words(out)
+
+
+def point_add_plain(p, q, group: str) -> torch.Tensor:
+    """Plain version of K2 without a mask."""
+    return from_words(_PlainCurve(group, p.device).padd(_words(p), _words(q)))
+
+
+def point_double_plain(p, group: str) -> torch.Tensor:
+    """Plain version of K5."""
+    return from_words(_PlainCurve(group, p.device).pdbl(_words(p)))
 
 
 # ---------------------------------------------------------------------------
@@ -348,4 +368,31 @@ def masked_add(
         "masked_add", "masked_add_" + group, GROUPS[group], p.data_ptr(), q.data_ptr(), mask.data_ptr(),
         out.data_ptr(), lanes,
     )
+    return out
+
+
+def point_add(p: torch.Tensor, q: torch.Tensor, group: str = "g1") -> torch.Tensor:
+    """K2 with no mask: p + q per lane (complete projective add)."""
+    lanes = _check_points(p, group, "p")
+    if _check_points(q, group, "q") != lanes:
+        raise ValueError("p and q differ in lanes")
+    if p.device.type == "cpu":
+        return point_add_plain(p, q, group)
+    _native.require_cuda(p, q)
+    out = torch.empty_like(p)
+    _native.launch(
+        "masked_add", "point_add_" + group, GROUPS[group], p.data_ptr(), q.data_ptr(), None,
+        out.data_ptr(), lanes,
+    )
+    return out
+
+
+def point_double(p: torch.Tensor, group: str = "g1") -> torch.Tensor:
+    """K5: 2p per lane (complete projective double)."""
+    lanes = _check_points(p, group, "p")
+    if p.device.type == "cpu":
+        return point_double_plain(p, group)
+    _native.require_cuda(p)
+    out = torch.empty_like(p)
+    _native.launch("point_double", "point_double_" + group, GROUPS[group], p.data_ptr(), out.data_ptr(), lanes)
     return out

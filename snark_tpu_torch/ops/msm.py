@@ -1,8 +1,8 @@
-"""Pippenger window choice and signed window digits, as torch ops.
+"""Pippenger window choice and window digits, as torch ops.
 
-Counterpart of the JAX package's `ops/msm.py` (`scalars_to_digits_signed`,
-`signed_digits_from_u8_planes`) and the window picks of
-`ops/msm_plane.py`.
+Counterpart of the JAX package's `ops/msm.py` (`scalars_to_digits`,
+`scalars_to_digits_signed`, `signed_digits_from_u8_planes`) and the window
+picks of `ops/msm_plane.py`.
 """
 
 from __future__ import annotations
@@ -38,25 +38,43 @@ def num_windows_signed(c: int, num_bits: int) -> int:
     return w_u + 1 if b_top >= c else w_u
 
 
-def signed_digits(std: torch.Tensor, c: int, num_bits: int) -> torch.Tensor:
-    """(N, 8) int32 standard-form limbs (canonical) -> (N, W) int32
-    balanced window digits in (−2^(c−1), 2^(c−1)], the last window
-    non-negative; bit-identical to the reference's
-    `scalars_to_digits_signed`."""
+def _check_std(std: torch.Tensor) -> None:
     if std.dtype != torch.int32 or std.dim() != 2 or std.shape[1] != LIMBS:
         raise ValueError(f"want int32 (N, 8), got {std.dtype} {tuple(std.shape)}")
+
+
+def _windows(std: torch.Tensor, c: int, count: int) -> list[torch.Tensor]:
+    """(N, 8) int32 limbs -> `count` int64 columns of c-bit windows."""
     w = std.to(torch.int64) & 0xFFFFFFFF
     w = torch.cat([w, torch.zeros_like(w[:, :1])], dim=1)  # room for a straddle
-    w_u = -(-num_bits // c)
-    W = num_windows_signed(c, num_bits)
     mask = (1 << c) - 1
     cols = []
-    for j in range(w_u):
+    for j in range(count):
         a, r = divmod(c * j, 32)
         v = w[:, a] >> r
         if r + c > 32:
             v = v | (w[:, a + 1] << (32 - r))
         cols.append(v & mask)
+    return cols
+
+
+def unsigned_digits(std: torch.Tensor, c: int, num_bits: int) -> torch.Tensor:
+    """(N, 8) int32 standard-form limbs (canonical) -> (N, W) int32 window
+    digits in [0, 2^c), W = ceil(num_bits / c); equal to the reference's
+    `scalars_to_digits`."""
+    _check_std(std)
+    return torch.stack(_windows(std, c, -(-num_bits // c)), dim=1).to(torch.int32)
+
+
+def signed_digits(std: torch.Tensor, c: int, num_bits: int) -> torch.Tensor:
+    """(N, 8) int32 standard-form limbs (canonical) -> (N, W) int32
+    balanced window digits in (−2^(c−1), 2^(c−1)], the last window
+    non-negative; bit-identical to the reference's
+    `scalars_to_digits_signed`."""
+    _check_std(std)
+    w_u = -(-num_bits // c)
+    W = num_windows_signed(c, num_bits)
+    cols = _windows(std, c, w_u)
     if W > w_u:
         cols.append(torch.zeros_like(cols[0]))
     half = 1 << (c - 1)

@@ -1,12 +1,18 @@
-"""Pippenger MSM over the curve kernels K1 and K2, signed digits.
+"""Pippenger MSM over the curve kernels, signed or unsigned digits.
 
-Counterpart of the JAX package's `ops/msm_plane.py` `PlaneMsm` (signed
-mode, the prover's): the same replica-slot sort keys, sort and
-searchsorted into buckets, the bucket scan with its rank-split spill, the
-replica and suffix folds, and the host Horner combine. The group arithmetic
-is K1 (`bucket_madd_rows`, the scan) and K2 (`masked_add`, the folds).
+Counterpart of the JAX package's `ops/msm_plane.py` `PlaneMsm`: the same
+replica-slot sort keys, sort and searchsorted into buckets, the bucket
+accumulation (the scan with its rank-split spill, or the batch-affine tree
+of `ops/msm_affine.py`), the replica and suffix folds, and the Horner
+combine over the window totals, on the device (`msm`) or on the host
+(`msm_host`). The group arithmetic is K1 (`bucket_madd_rows`, the scan),
+K2 (`masked_add`, the folds; `point_add`, the combine), K5
+(`point_double`, the combine) and K6-K8 (the affine tree).
 
-Per window, bucket b (|digit| = b + 1) of a window with only `bits` < cb
+Signed digits (the prover's): bucket b holds |digit| = b + 1 (cb = c − 1
+bucket bits), zero digits are dropped and a digit's sign rides bit 31 of
+the gather payload. Unsigned digits: bucket b holds digit b (cb = c), and
+bucket 0 is emptied. Per window, bucket b of a window with only `bits` < cb
 digit bits is split over 2^r replica slots (r = cb − bits, slot =
 b·2^r | (i mod 2^r)), so every window has 2^cb slots of even expected
 size. The scan runs one K1 launch over all W·2^cb lanes: lane l adds its
@@ -23,30 +29,54 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .curve import GROUPS, identity, limbs_to_points, masked_add, bucket_madd_rows
+from .curve import (
+    GROUPS,
+    bucket_madd_rows,
+    identity,
+    limbs_to_points,
+    masked_add,
+    point_add,
+    point_double,
+)
 
 _SIGN = 1 << 31
 SPILL_BUCKETS = 2048  # most buckets a scan spills (the reference's default)
+AFFINE_MIN_MEAN = 8  # the affine tree runs when n >= 8 · 2^cb (the reference's gate)
 
 
 class PlaneMsm:
-    """Signed-digit bucket MSM for one (c, num_bits, group)."""
+    """Bucket MSM for one (c, num_bits, group, digit mode). With
+    `affine=True` the buckets are accumulated by the batch-affine tree
+    wherever the mean bucket holds at least 8 elements, else by the scan."""
 
-    def __init__(self, c: int, num_bits: int = 254, group: str = "g1"):
+    def __init__(
+        self,
+        c: int,
+        num_bits: int = 254,
+        group: str = "g1",
+        signed: bool = True,
+        affine: bool = False,
+    ):
         self.c = c
         self.group = group
         self.K = GROUPS[group]
         self.num_bits = num_bits
-        cb = self.cb = c - 1  # signed: bucket = |digit| − 1
+        self.signed = signed
+        self.affine = affine
+        cb = self.cb = c - 1 if signed else c
         nb = self.nb = 1 << cb
-        w_u = -(-num_bits // c)
-        b_top = num_bits - (w_u - 1) * c
-        if b_top >= c:
-            W = w_u + 1
-            bits_w = [cb] * w_u + [0]
+        if signed:
+            w_u = -(-num_bits // c)
+            b_top = num_bits - (w_u - 1) * c
+            if b_top >= c:
+                W = w_u + 1
+                bits_w = [cb] * w_u + [0]
+            else:
+                W = w_u
+                bits_w = [cb] * (W - 1) + [min(b_top, cb)]
         else:
-            W = w_u
-            bits_w = [cb] * (W - 1) + [min(b_top, cb)]
+            W = -(-num_bits // c)
+            bits_w = [min(c, num_bits - w * c) for w in range(W)]
         self.W = W
         self.lanes = W * nb
         r_w = np.array([cb - b for b in bits_w], dtype=np.int64)
@@ -66,28 +96,36 @@ class PlaneMsm:
             (((1 << k) >= self.mult) & (slot % self.mult == 0) & (slot + (1 << k) < nb)).reshape(-1)
             for k in range(cb)
         ]
+        # unsigned: the slots of digit 0 (emptied before the scan)
+        self.bucket0 = (slot < self.mult).reshape(-1)
         # spill lanes: about a tenth of the bucket lanes, in steps of 256
         self.spill_lanes = (
             max(1, (self.lanes // 10) // 256) * 256 if self.lanes >= 2048 else 0
         )
+        self._affine = None
 
     # -- phase 1-2: sort into buckets ----------------------------------------
     def sort_keys(self, digits_t: torch.Tensor):
-        """(W, N) signed digits -> (keys, payload): key = bucket·2^r |
-        (i mod 2^r), zero digits past the last bucket (key nb); the payload
-        is the row index with the digit's sign in bit 31."""
+        """(W, N) digits -> (keys, payload): key = bucket·2^r | (i mod 2^r).
+        Signed: bucket |digit| − 1, zero digits past the last bucket (key
+        nb), the digit's sign in payload bit 31. Unsigned: bucket = digit.
+        The payload is the row index (int32 holding the u32 bits)."""
         W, n = digits_t.shape
         dev = digits_t.device
         iota = torch.arange(n, dtype=torch.int64, device=dev).expand(W, n)
         mult = torch.as_tensor(self.mult, device=dev)
-        mag = digits_t.to(torch.int64).abs()
+        d = digits_t.to(torch.int64)
+        if not self.signed:
+            return d * mult + (iota & (mult - 1)), iota.to(torch.int32)
+        mag = d.abs()
         keys = torch.where(mag == 0, self.nb, (mag - 1) * mult + (iota & (mult - 1)))
         payload = iota | torch.where(digits_t < 0, _SIGN, 0)
-        # int32 holding the u32 payload bits
         payload = torch.where(payload >= _SIGN, payload - (1 << 32), payload)
         return keys, payload.to(torch.int32)
 
     def _buckets(self, digits_t: torch.Tensor):
+        """-> (perm, start, length): the flat sort payload and each lane's
+        run in it."""
         W, n = digits_t.shape
         keys, payload = self.sort_keys(digits_t)
         keys_sorted, order = torch.sort(keys, dim=1, stable=True)
@@ -96,18 +134,21 @@ class PlaneMsm:
         bounds = torch.searchsorted(keys_sorted, targets.contiguous())
         start = bounds[:, :-1].reshape(-1)
         length = (bounds[:, 1:] - bounds[:, :-1]).reshape(-1)
+        if not self.signed:  # digit 0 adds nothing
+            length = torch.where(torch.as_tensor(self.bucket0, device=length.device), 0, length)
         return perm, start, length
 
     # -- phase 3: bucket scan + spill -----------------------------------------
-    def spill_plan(self, length: torch.Tensor, n: int):
+    def spill_plan(self, length: torch.Tensor, mean: int):
         """-> (eff_len, spill): the main scan's run lengths, and for the
         spill (None when nothing spills) the cut T1 and the top-S2 buckets
-        (top lengths, their lanes, which of them spill)."""
+        (top lengths, their lanes, which of them spill). `mean` is the
+        expected run length."""
         S = self.spill_lanes
+        lanes = length.shape[0]
         S2 = min(SPILL_BUCKETS, max(1, S // 4))
-        if not 0 < S < self.lanes:
+        if not 0 < S < lanes:
             return length, None
-        mean = max(1, n // self.nb)
         T1 = int(mean + max(2, int(1.5 * mean**0.5)))
         top_vals, top_idx = torch.topk(length, S2)
         t_star = max(T1, int(top_vals[S2 - 1]))
@@ -117,14 +158,18 @@ class PlaneMsm:
         eff_len = torch.where(length > t_star, length.clamp(max=T1), length)
         return eff_len, (T1, top_vals, top_idx, spilled)
 
-    def _scan(self, table, perm, start, length, n):
+    def run_scan(self, table, perm, lane_base, start, length, mean: int):
+        """Phase 3 over any element source: lane l adds the rows
+        perm[lane_base[l] + start[l] + i], i < length[l], of `table`. The
+        bucket scan passes the sort payload with window offsets; the affine
+        path passes its block partials (perm = iota, lane_base = 0)."""
         dev = table.device
-        lanes = self.lanes
+        lanes = length.shape[0]
         i32 = lambda t: t.to(torch.int32).contiguous()  # noqa: E731
-        lane_base = torch.arange(lanes, device=dev, dtype=torch.int64) // self.nb * n
-        eff_len, spill = self.spill_plan(length, n)
+        lane_base = i32(lane_base)
+        eff_len, spill = self.spill_plan(length, mean)
         acc = bucket_madd_rows(
-            identity(lanes, self.group, dev), table, perm, i32(lane_base), i32(start),
+            identity(lanes, self.group, dev), table, perm, lane_base, i32(start),
             i32(eff_len), 0, int(eff_len.max()), self.group,
         )
         if spill is None:
@@ -145,7 +190,7 @@ class PlaneMsm:
         bidx = top_idx[b_of]
         sp_len = (ov[b_of] - o_l).clamp(0, chunk)
         sacc = bucket_madd_rows(
-            identity(S, self.group, dev), table, perm, i32(lane_base[bidx]),
+            identity(S, self.group, dev), table, perm, lane_base[bidx].contiguous(),
             i32(start[bidx] + T1 + o_l), i32(sp_len), 0, int(sp_len.max()), self.group,
         )
         # segmented suffix fold: each bucket's chunk partials into its
@@ -161,6 +206,23 @@ class PlaneMsm:
         inv[top_idx] = torch.where(spilled, first_lane, -1)
         return masked_add(acc, sacc[inv.clamp(min=0)].contiguous(), inv >= 0, self.group)
 
+    def uses_affine(self, n: int) -> bool:
+        return self.affine and n >= AFFINE_MIN_MEAN * self.nb
+
+    def _accumulate(self, table, digits_t):
+        """Phases 1-3 -> (lanes, 3, K, 8) bucket accumulators."""
+        W, n = digits_t.shape
+        perm, start, length = self._buckets(digits_t)
+        mean = max(1, n // self.nb)
+        if self.uses_affine(n):
+            from .msm_affine import AffineAccum
+
+            if self._affine is None:
+                self._affine = AffineAccum(self)
+            return self._affine.accumulate(table, perm, start, length, n, mean)
+        lane_base = torch.arange(self.lanes, device=table.device) // self.nb * n
+        return self.run_scan(table, perm, lane_base, start, length, mean)
+
     # -- phase 4: replica collapse and the double suffix scan ------------------
     def _fold(self, acc):
         W, nb, K = self.W, self.nb, self.K
@@ -173,24 +235,40 @@ class PlaneMsm:
         for j in range(self.max_r):
             acc = step(acc, 1 << j, torch.as_tensor(self.collapse[j], device=dev))
         scan = [torch.as_tensor(m, device=dev) for m in self.scan]
-        # S_b = sum_{j >= b} B_j, then sum_{b >= 0} S_b = sum (b + 1)·B_b:
-        # bucket b holds |digit| = b + 1
-        for _ in range(2):
-            for k in range(self.cb):
-                acc = step(acc, 1 << k, scan[k])
+        # S_b = sum_{j >= b} B_j, then a second suffix scan. Signed: bucket
+        # b holds |digit| = b + 1, and sum_{b >= 0} S_b = sum (b + 1)·B_b.
+        # Unsigned: bucket b holds digit b; S_0 is emptied first, so the
+        # second scan gives sum_{b >= 1} S_b = sum b·B_b.
+        for k in range(self.cb):
+            acc = step(acc, 1 << k, scan[k])
+        if not self.signed:
+            acc = acc.view(W, nb, 3, K, 8).clone()
+            acc[:, 0] = identity(W, self.group, dev)
+            acc = acc.view(W * nb, 3, K, 8)
+        for k in range(self.cb):
+            acc = step(acc, 1 << k, scan[k])
         return acc.view(W, nb, 3, K, 8)[:, 0].contiguous()
 
     # -- public API --------------------------------------------------------------
     def window_sums(self, table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
-        """table (N, row_bytes) uint8 rows; digits (N, W) int32 signed ->
-        (W, 3, K, 8) window totals."""
+        """table (N, row_bytes) uint8 rows; digits (N, W) int32 (signed or
+        unsigned, as the plan) -> (W, 3, K, 8) window totals."""
         n, W = digits.shape
         if W != self.W:
             raise ValueError(f"digits have {W} windows, plan has {self.W}")
         if table.shape[0] != n:
             raise ValueError(f"table has {table.shape[0]} rows for {n} digits")
-        perm, start, length = self._buckets(digits.t().contiguous())
-        return self._fold(self._scan(table, perm, start, length, n))
+        return self._fold(self._accumulate(table, digits.t().contiguous()))
+
+    def combine(self, sums: torch.Tensor) -> torch.Tensor:
+        """Horner over the window totals on the device: c doublings (K5)
+        and one add (K2) per window, on one lane -> (3, K, 8) projective."""
+        acc = identity(1, self.group, sums.device)
+        for w in range(self.W - 1, -1, -1):
+            for _ in range(self.c):
+                acc = point_double(acc, self.group)
+            acc = point_add(acc, sums[w : w + 1], self.group)
+        return acc[0]
 
     def combine_host(self, sums: torch.Tensor, host_curve):
         """Horner over the window totals on the host -> affine point."""
@@ -202,5 +280,10 @@ class PlaneMsm:
             acc = host_curve.add(acc, affs[w])
         return acc
 
-    def msm(self, table, digits, host_curve):
+    def msm(self, table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+        """The whole MSM on the device -> (3, K, 8) projective point."""
+        return self.combine(self.window_sums(table, digits))
+
+    def msm_host(self, table: torch.Tensor, digits: torch.Tensor, host_curve):
+        """Window sums on the device, Horner on the host -> affine point."""
         return self.combine_host(self.window_sums(table, digits), host_curve)

@@ -150,7 +150,7 @@ def test_csr_limb_repack_matches_jax():
 
 def _cuda_constants():
     src = ""
-    for name in ("field.cuh", "curve.cu"):
+    for name in sorted(os.listdir(os.path.join(PORT, "csrc"))):
         with open(os.path.join(PORT, "csrc", name)) as fh:
             src += fh.read()
 
@@ -172,6 +172,9 @@ def test_cuda_constants_match_params():
     assert array("kFrP")[0] == r and array("kFqP")[0] == q
     assert scalar("FrParams") == FR.n0 and scalar("FqParams") == FQ.n0
     assert array("kRowToMont")[0] == 1 << 240
+    assert array("kMontToRow")[0] == (1 << 272) % q
+    assert array("kOneMont")[0] == FQ.one
+    assert array("kQMinus2")[0] == q - 2
     assert array("kB3G1")[0] == FQ.to_mont(3 * BN254.b)
     words = array("kB3G2")[1]
     b3 = [sum(w << (32 * i) for i, w in enumerate(words[8 * c : 8 * c + 8])) for c in (0, 1)]

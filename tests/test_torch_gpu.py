@@ -15,14 +15,15 @@ import random
 import pytest
 import torch
 
-from snark_tpu_torch.fields.limbs import FR
+from snark_tpu_torch.fields.limbs import FQ, FR
 from snark_tpu_torch.fields.params import BN254
 from snark_tpu_torch.groth16 import Groth16, ProvingKey
 from snark_tpu_torch.models import MulChainCircuit
 from snark_tpu_torch.ops import curve as C
 from snark_tpu_torch.ops import ntt as N
 from snark_tpu_torch.ops.curve_host import host_g1, host_g2
-from snark_tpu_torch.ops.msm import signed_digits
+from snark_tpu_torch.ops import msm_affine as A
+from snark_tpu_torch.ops.msm import signed_digits, unsigned_digits
 from snark_tpu_torch.ops.msm_plane import PlaneMsm
 from snark_tpu_torch.snark import serialize as ser
 
@@ -108,7 +109,88 @@ def test_msm_matches_host(cuda, group):
         agg[i % 16] = (agg[i % 16] + s) % R
     table = torch.as_tensor(C.pack_rows_u8(pts, group), device=cuda)
     digits = signed_digits(FR.tensor(scalars, cuda, mont=False), c, BN254.fr.num_bits)
-    assert PlaneMsm(c, group=group).msm(table, digits, hc) == hc.msm(pool, agg)
+    assert PlaneMsm(c, group=group).msm_host(table, digits, hc) == hc.msm(pool, agg)
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_combine_kernels_match_plain(cuda, group):
+    """K5 and K2 without a mask, identity and chained doublings included."""
+    hc = HOSTS[group]
+    rng = random.Random(8)
+    P = [hc.scalar_mul(hc.generator, rng.randrange(1, R)) for _ in range(63)] + [None]
+    Q = [P[5], hc.neg(P[6]), None] + [hc.scalar_mul(hc.generator, rng.randrange(1, R)) for _ in range(61)]
+    p, q = C.points_to_limbs(P, group, cuda), C.points_to_limbs(Q, group, cuda)
+    d = p
+    for _ in range(3):
+        d2 = C.point_double(d, group)
+        assert torch.equal(d2, C.point_double_plain(d, group))
+        d = d2
+    assert C.limbs_to_points(d, group) == [hc.double(hc.double(hc.double(x))) for x in P]
+    s = C.point_add(p, q, group)
+    assert torch.equal(s, C.point_add_plain(p, q, group))
+    assert C.limbs_to_points(s, group) == [hc.add(a, b) for a, b in zip(P, Q)]
+
+
+def affine_level0(group, n, c, seed, cuda):
+    """Level-0 blocks of a signed affine MSM over a pool with inverse
+    pairs and identity rows: (rows, sign bytes)."""
+    hc = HOSTS[group]
+    rng = random.Random(seed)
+    base = [hc.scalar_mul(hc.generator, rng.randrange(1, R)) for _ in range(7)]
+    pool = base + [hc.neg(pt) for pt in base] + [None, None]
+    pts = [pool[i % 16] for i in range(n)]
+    scalars = [rng.randrange(R) for _ in range(n)]
+    table = torch.as_tensor(C.pack_rows_u8(pts, group), device=cuda)
+    plan = PlaneMsm(c, group=group, affine=True)
+    digits = signed_digits(FR.tensor(scalars, cuda, mont=False), c, BN254.fr.num_bits)
+    perm, start, length = plan._buckets(digits.t().contiguous())
+    rows, sgn, _, _, _ = A.AffineAccum(plan).blocks(table, perm, start, length, n, n // plan.nb)
+    return rows, sgn
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_affine_kernels_match_plain(cuda, group):
+    rows, sgn = affine_level0(group, 1 << 12, 9, 9, cuda)
+    den, cls = A.affine_phase1(rows, sgn, group)
+    pden, pcls = A.affine_phase1_plain(rows, sgn, group)
+    assert torch.equal(den, pden) and torch.equal(cls, pcls)
+    assert set(torch.unique(cls).tolist()) >= {A.ADD, A.DEAD, A.COPY_L, A.COPY_R}
+    h = den.shape[0] // 2
+    assert torch.equal(A.affine_tree_mul(den[:h], den[h:], group),
+                       A.affine_tree_mul_plain(den[:h], den[h:], group))
+    assert torch.equal(A.affine_inverse(den[:5], group), A.affine_inverse_plain(den[:5], group))
+    dinv = A.batch_inverse(den, group)
+    one = torch.zeros_like(den[0])
+    one[0] = FQ.const(1, cuda)
+    assert torch.equal(A.affine_tree_mul(den, dinv, group), one.expand_as(den))
+    out = A.affine_phase3(rows, sgn, dinv, cls, group)
+    assert torch.equal(out, A.affine_phase3_plain(rows, sgn, dinv, cls, group))
+    nxt, _ = A.affine_phase1(out, None, group)
+    assert torch.equal(nxt, A.affine_phase1_plain(out, None, group)[0])
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("affine", [False, True])
+def test_device_msm_matches_host(cuda, group, affine):
+    """2^14 points, the device combine, the scan or the affine tree."""
+    hc = HOSTS[group]
+    rng = random.Random(41)
+    c, n = 9, 1 << 14
+    pool = [hc.scalar_mul(hc.generator, rng.randrange(1, R)) for _ in range(16)]
+    pts = pool * (n // 16)
+    scalars = [rng.randrange(1 << 44) if i % 2 else rng.randrange(R) for i in range(n)]
+    agg = [0] * 16
+    for i, s in enumerate(scalars):
+        agg[i % 16] = (agg[i % 16] + s) % R
+    want = hc.msm(pool, agg)
+    table = torch.as_tensor(C.pack_rows_u8(pts, group), device=cuda)
+    std = FR.tensor(scalars, cuda, mont=False)
+    for signed in (True, False):
+        digits = (signed_digits if signed else unsigned_digits)(std, c, BN254.fr.num_bits)
+        plan = PlaneMsm(c, group=group, signed=signed, affine=affine)
+        assert plan.uses_affine(n) == affine
+        got = plan.msm(table, digits)
+        assert C.limbs_to_points(got[None], group)[0] == want
 
 
 def test_prove_fixture(cuda):

@@ -14,13 +14,13 @@ import jax.numpy as jnp
 from snark_tpu.fields import BN254 as J_BN254
 from snark_tpu.fields.host import Fp
 from snark_tpu.ops.curve_host import host_g1, host_g2
-from snark_tpu.ops.msm import scalars_to_digits_signed
+from snark_tpu.ops.msm import scalars_to_digits, scalars_to_digits_signed
 from snark_tpu.ops.msm_plane import get_plane_msm
 from snark_tpu.ops.pallas_curve import get_plane_curve, pack_rows_u8_host
 
 from snark_tpu_torch.fields.limbs import FR
 from snark_tpu_torch.ops import curve as C
-from snark_tpu_torch.ops.msm import pick_window_plane_signed, signed_digits
+from snark_tpu_torch.ops.msm import pick_window_plane_signed, signed_digits, unsigned_digits
 from snark_tpu_torch.ops.msm_plane import PlaneMsm
 
 R = J_BN254.fr.modulus
@@ -60,6 +60,17 @@ def test_signed_digits_match_jax(c):
     got = port_digits(scalars, c)
     assert np.array_equal(got.numpy(), want)
     assert int(got.abs().max()) <= 1 << (c - 1)
+
+
+@pytest.mark.parametrize("c", [8, 12, 13])
+def test_unsigned_digits_match_jax(c):
+    rng = random.Random(c)
+    scalars = [rng.randrange(R) for _ in range(256)]
+    scalars[:4] = [0, 1, R - 1, (1 << 253) + (1 << c) - 1]
+    want = scalars_to_digits(Fp(J_BN254.fr).to_limbs_array(scalars), c, NBITS)
+    got = unsigned_digits(FR.tensor(scalars, "cpu", mont=False), c, NBITS)
+    assert np.array_equal(got.numpy(), want.astype(np.int32))
+    assert got.shape[1] == PlaneMsm(c, signed=False).W == -(-NBITS // c)
 
 
 def test_window_pick():
@@ -102,7 +113,7 @@ def test_msm_matches_jax(jax_projective_msm):
     jplan = get_plane_msm(J_BN254, c, interpret=True, signed=True)
     jdigits = scalars_to_digits_signed(Fp(J_BN254.fr).to_limbs_array(scalars), c, NBITS)
     assert jplan.msm_host(jnp.asarray(table), jdigits, hc) == want
-    got = PlaneMsm(c).msm(torch.as_tensor(table), port_digits(scalars, c), hc)
+    got = PlaneMsm(c).msm_host(torch.as_tensor(table), port_digits(scalars, c), hc)
     assert got == want
 
 
@@ -117,7 +128,7 @@ def test_msm_g2_matches_host():
             agg[pt] = (agg.get(pt, 0) + s) % R
     want = hc.msm(list(agg), list(agg.values()))
     table = torch.as_tensor(C.pack_rows_u8(pts, "g2"))
-    assert PlaneMsm(c, group="g2").msm(table, port_digits(scalars, c), hc) == want
+    assert PlaneMsm(c, group="g2").msm_host(table, port_digits(scalars, c), hc) == want
 
 
 def test_msm_clustered_spill(jax_projective_msm):
@@ -138,8 +149,8 @@ def test_msm_clustered_spill(jax_projective_msm):
     plan = PlaneMsm(c)
     digits = port_digits(scalars, c)
     _, _, length = plan._buckets(digits.t().contiguous())
-    assert plan.spill_plan(length, n)[1] is not None  # the spill path runs
+    assert plan.spill_plan(length, n // plan.nb)[1] is not None  # the spill path runs
     table = pack_rows_u8_host(get_plane_curve(J_BN254), pts)
-    assert plan.msm(torch.as_tensor(table), digits, hc) == want
+    assert plan.msm_host(torch.as_tensor(table), digits, hc) == want
     jplan = get_plane_msm(J_BN254, c, interpret=True, signed=True)
     assert jplan.msm_host(jnp.asarray(table), digits.numpy(), hc) == want
