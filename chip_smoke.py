@@ -6,14 +6,17 @@
 Phases, each printing one JSON line with its wall seconds as it ends:
 
 0. device: the card's name; `nvidia-smi` name and power limit.
-1. build: the one nvcc call that builds every kernel (registers and spills
-   per kernel from ptxas).
+1. build: one nvcc process per source, all at once, that build every
+   kernel (registers and spills per kernel and per called function, from
+   ptxas).
+   setup: the synthetic key of prove_full and the MSM bench's inputs.
 2. kernels: K1-K4 against their plain PyTorch versions on the card, at the
    shapes of the 2^18 prove below, and K5 (`point_double`), K2 without a
    mask (`point_add`), K6-K8 (the batch-affine tree) at the shapes of the
    MSM bench below (the Horner combine's one lane; level 0 of the affine
    tree at 2^20 points for G1, 2^18 for G2), exact equality; each kernel's
-   time (CUDA events, warmed up), its plain version's time and its bound.
+   time (CUDA events, warmed up), its plain version's time and its bound;
+   the kernel line adds each kernel's ptxas registers and spills.
 3. prove_fixture: proves the committed MulChain(4, 1023) key
    (`tests/vectors/torch_pk_bn254_mulchain1023.npz`) at its committed
    (r, s); the proof must equal the JAX package's committed proof bit for
@@ -34,6 +37,19 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    ways; G1 unsigned c = 12 with the scan; every result equal to the pool
    oracle. Launch counts of this phase go into the kernel line for K5-K8
    and K2 without a mask.
+7. setup_bls, kernels_bls: the BN254 data is freed, the synthetic
+   BLS12-381 key of prove_full_bls is made, and the BLS12-381 instances of
+   K1-K4 (K1 and K2 in G1 and G2 over the 12-limb Fq, K3 and K4 over
+   BLS12-381 Fr) are held against their plain versions at the shapes of
+   that prove, as in phase 2.
+8. prove_fixture_bls: proves the committed BLS12-381 MulChain(7, 12) key
+   (`tests/vectors/torch_pk_bls12_381_mulchain12.npz`, m = 26) at its
+   committed (r, s); the proof must equal the JAX package's committed
+   proof bit for bit and pass the host pairing check.
+9. prove_full_bls: MulChain(seed=4, n = 2^20 − 64) over BLS12-381 (domain
+   2^20, m = 2097026, the reference's configuration 3) against a synthetic
+   BLS12-381 key made as prove_full's, with the same checks. Launch counts
+   of this prove go into the kernel line for the BLS12-381 instances.
 
 The last line is `{"ok": true, "device": {...}}`, printed only when every
 phase passed; any failure exits non-zero. No card: exit 1, no result.
@@ -53,7 +69,10 @@ import traceback
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURE_PK = os.path.join(HERE, "tests", "vectors", "torch_pk_bn254_mulchain1023.npz")
 FIXTURE_PROOF = os.path.join(HERE, "tests", "vectors", "torch_proof_bn254_mulchain1023.json")
+FIXTURE_PK_BLS = os.path.join(HERE, "tests", "vectors", "torch_pk_bls12_381_mulchain12.npz")
+FIXTURE_PROOF_BLS = os.path.join(HERE, "tests", "vectors", "torch_proof_bls12_381_mulchain12.json")
 FULL_N = (1 << 18) - 64  # constraints: domain 2^18, m = 524162
+FULL_N_BLS = (1 << 20) - 64  # constraints: domain 2^20, m = 2097026
 FULL_SEED = 4
 POOL = 64
 # H100 SXM peaks (published): 3.35e12 bytes/s of HBM; 32-bit integer
@@ -61,7 +80,16 @@ POOL = 64
 # capability 9.0) x 132 SMs x 1.98 GHz boost = 1.6727e13 per second.
 PEAK_BYTES = 3.35e12
 PEAK_IMAD = 132 * 64 * 1.98e9
-IMAD_PER_MUL = 264  # 8x8-limb CIOS: 2·64 (a·b) + 2·64 (m·p) + 8 (m)
+
+
+
+def imad_per_mul(limbs: int) -> int:
+    """32-bit multiply-adds of one N-limb CIOS product: 2N² (a·b) + 2N²
+    (m·p) + N (m); 264 at N = 8, 588 at N = 12."""
+    return 4 * limbs * limbs + limbs
+
+
+IMAD_PER_MUL = imad_per_mul(8)  # BN254 Fq and both scalar fields
 # Montgomery muls per operation, from csrc/curve.cu and csrc/ntt.cu
 MULS = {
     "madd_g1": 13 + 2,  # RCB15 Alg 8 + row decode (X, Y)
@@ -114,16 +142,17 @@ def bound_ms(imads: float, nbytes: float) -> tuple[float, str]:
 
 
 class SyntheticKey:
-    """A proving key for MulChain(seed, n) whose five tables tile pools of
-    64 distinct points, and whose vk points come from fixed scalars. It
-    is not the output of a setup (its proofs do not verify); it feeds the
-    prover's device path at full width with an exact host oracle."""
+    """A proving key for MulChain(seed, n) over `curve` whose five tables
+    tile pools of 64 distinct points, and whose vk points come from fixed
+    scalars. It is not the output of a setup (its proofs do not verify); it
+    feeds the prover's device path at full width with an exact host
+    oracle."""
 
-    def __init__(self, n_constraints: int, seed: int, device):
+    def __init__(self, n_constraints: int, seed: int, device, curve=None):
         import numpy as np
         import torch
 
-        from snark_tpu_torch.fields.limbs import FR
+        from snark_tpu_torch.fields.limbs import fields_of
         from snark_tpu_torch.fields.params import BN254
         from snark_tpu_torch.groth16 import ProvingKey, VerifyingKey
         from snark_tpu_torch.groth16.qap import PaddedCsr, domain_size_for
@@ -131,9 +160,12 @@ class SyntheticKey:
         from snark_tpu_torch.ops.curve import pack_rows_u8
         from snark_tpu_torch.ops.curve_host import host_g1, host_g2
 
+        curve = curve or BN254
+        self.curve = curve
+        self.fr = fields_of(curve)[0]
         rng = random.Random(seed)
-        r = BN254.fr.modulus
-        g1, g2 = host_g1(BN254), host_g2(BN254)
+        r = curve.fr.modulus
+        g1, g2 = host_g1(curve), host_g2(curve)
         self.g1, self.g2 = g1, g2
         self.circuit = MulChainCircuit(seed=FULL_SEED, n=n_constraints)
         ni = self.circuit.num_instance
@@ -148,15 +180,15 @@ class SyntheticKey:
 
         def table(name, rows, identity_row=None):
             group = "g2" if name == "b_g2" else "g1"
-            pts = pack_rows_u8(self.pools[name], group)
+            pts = pack_rows_u8(self.pools[name], group, curve)
             tiled = np.tile(pts, (-(-rows // POOL), 1))[:rows].copy()
             if identity_row is not None:
-                tiled[identity_row] = pack_rows_u8([None], group)[0]
+                tiled[identity_row] = pack_rows_u8([None], group, curve)[0]
             return torch.as_tensor(tiled, device=device)
 
         alpha, beta, gamma, delta = (rng.randrange(1, r) for _ in range(4))
         vk = VerifyingKey(
-            curve=BN254,
+            curve=curve,
             alpha_g1=g1.scalar_mul(g1.generator, alpha),
             beta_g2=g2.scalar_mul(g2.generator, beta),
             gamma_g2=g2.scalar_mul(g2.generator, gamma),
@@ -164,9 +196,9 @@ class SyntheticKey:
             gamma_abc_g1=[g1.scalar_mul(g1.generator, rng.randrange(1, r)) for _ in range(ni)],
         )
         # the reference's CSR format: (rows, 1) columns, 16-bit-limb
-        # Montgomery coefficients (all 1 for MulChain)
+        # Montgomery coefficients at R = 2^256 (all 1 for MulChain)
         one16 = np.array(
-            [(FR.to_mont(1) >> (16 * i)) & 0xFFFF for i in range(16)], np.uint32
+            [(self.fr.to_mont(1) >> (16 * i)) & 0xFFFF for i in range(16)], np.uint32
         )
         coeffs = np.broadcast_to(one16, (n_constraints, 1, 16))
         cols = self.circuit.csr_columns()
@@ -191,11 +223,13 @@ class SyntheticKey:
             domain_size=n,
         )
 
+    def table_bytes(self) -> int:
+        pk = self.pk
+        return sum(t.numel() for t in (pk.a_tbl, pk.b_g1_tbl, pk.b_g2_tbl, pk.h_tbl, pk.l_tbl))
+
     def pool_oracle(self, name: str, scalars: list[int], skip_row: int | None = None):
         """sum_j pool_j · (sum over rows i = j mod 64 of scalars[i])."""
-        from snark_tpu_torch.fields.params import BN254
-
-        r = BN254.fr.modulus
+        r = self.curve.fr.modulus
         agg = [0] * POOL
         for i, s in enumerate(scalars):
             if i != skip_row:
@@ -206,10 +240,9 @@ class SyntheticKey:
     def check_h(self, z: list[int], h_bitrev: list[int], rng: random.Random) -> bool:
         """h(x)·Z_H(x) == a(x)·b(x) − c(x) at a random x, with a, b, c
         interpolated on the host from z and the matrices."""
-        from snark_tpu_torch.fields.params import BN254
         from snark_tpu_torch.ops.ntt import bit_reverse_indices
 
-        p = BN254.fr.modulus
+        p = self.curve.fr.modulus
         pk = self.pk
         n, nc, ni = pk.domain_size, pk.num_constraints, pk.num_instance
         evals = [
@@ -218,7 +251,7 @@ class SyntheticKey:
             [z[c] for c in self.cols[2][:, 0]] + [0] * (n - nc),
         ]
         x = rng.randrange(p)
-        omega = BN254.fr.root_of_unity(n)
+        omega = self.curve.fr.root_of_unity(n)
         w, ws = 1, []
         for _ in range(n):
             ws.append(w)
@@ -251,25 +284,57 @@ class SyntheticKey:
 # ---------------------------------------------------------------------------
 
 
+def short_name(mangled: str) -> str:
+    """`_ZN5snark23bucket_madd_rows_kernelINS_3Fp2INS_11BlsFqParamsEEEE...`
+    -> `bucket_madd_rows_kernel<Fp2<BlsFqParams>>`."""
+    m = re.match(r"_ZN5snark(\d+)", mangled)
+    if not m:
+        return mangled
+    name = mangled[m.end() : m.end() + int(m.group(1))]
+    params = re.search(r"(BlsFqParams|BlsFrParams|FqParams|FrParams)", mangled)
+    if not params:
+        return name
+    inner = params.group(1)
+    if "3Fp2" in mangled:
+        inner = f"Fp2<{inner}>"
+    elif "2Fp" in mangled:
+        inner = f"Fp<{inner}>"
+    return f"{name}<{inner}>"
+
+
+def kernel_template(name: str) -> str:
+    """A kernel line's name -> its template in the ptxas report:
+    `bucket_madd_rows_bls12_381_g2` -> `bucket_madd_rows_kernel<Fp2<BlsFqParams>>`
+    (`point_add` is K2 without a mask)."""
+    bls = "Bls" if "_bls12_381" in name else ""
+    base = name.replace("_bls12_381", "")
+    if base in ("ntt_stage", "field_ew"):
+        return f"{base}_kernel<{bls}FrParams>"
+    base, group = base.rsplit("_", 1)
+    base = "masked_add" if base == "point_add" else base
+    return f"{base}_kernel<{'Fp2' if group == 'g2' else 'Fp'}<{bls}FqParams>>"
+
+
 def phase_build() -> dict:
+    """Build the library; registers of each kernel and stack and spill
+    bytes of each kernel and called function, as ptxas reports them."""
     from snark_tpu_torch import _native
 
     res = _native.build()
-    kernels = {}
-    name = None
+    funcs, name = {}, None
     for line in res.log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([^'\s]+)", line)
         if m:
-            name = m.group(1)
-            kernels[name] = {}
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            name = short_name(m.group(1))
+            funcs.setdefault(name, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
-            kernels[name]["spill_stores"] = int(m.group(1))
-            kernels[name]["spill_loads"] = int(m.group(2))
+            funcs[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            kernels[name]["registers"] = int(m.group(1))
-    return {"nvcc_seconds": round(res.seconds, 3), "built": res.built, "ptxas": kernels}
+            funcs[name]["registers"] = int(m.group(1))
+    return {"nvcc_seconds": round(res.seconds, 3), "built": res.built, "ptxas": funcs}
 
 
 def kernel_row(name, source, replaces, ms, plain_ms, err, imads, nbytes) -> dict:
@@ -305,21 +370,28 @@ def plain_time(fn):
 
 
 def phase_kernels(key: SyntheticKey, z_std, device) -> list[dict]:
-    """K1-K4 against their plain versions at the 2^18 prove's shapes."""
+    """K1-K4 of the key's curve against their plain versions at its full
+    prove's shapes."""
     import torch
 
-    from snark_tpu_torch.fields.limbs import FR
+    from snark_tpu_torch import _native
+    from snark_tpu_torch.fields.limbs import fields_of
     from snark_tpu_torch.ops import curve as C
     from snark_tpu_torch.ops import ntt as N
     from snark_tpu_torch.ops.msm import pick_window_plane_signed, signed_digits
     from snark_tpu_torch.ops.msm_plane import PlaneMsm
 
-    pk = key.pk
+    pk, curve, fr = key.pk, key.curve, key.fr
+    bls = curve.name != "bn254"
+    nbits = curve.fr.num_bits
+    fq_mul = imad_per_mul(fields_of(curve)[1].limbs)
+    curve_src = "snark_tpu_torch/csrc/" + ("curve_bls.cu" if bls else "curve.cu")
+    ntt_src = "snark_tpu_torch/csrc/" + ("ntt_bls.cu" if bls else "ntt.cu")
     c = pick_window_plane_signed(z_std.shape[0])
-    digits = signed_digits(z_std, c, 254)
+    digits = signed_digits(z_std, c, nbits)
     rows = []
     for group, tbl in (("g1", pk.a_tbl), ("g2", pk.b_g2_tbl)):
-        plan = PlaneMsm(c, 254, group)
+        plan = PlaneMsm(c, nbits, group, curve=curve)
         perm, start, length = plan._buckets(digits.t().contiguous())
         n = digits.shape[0]
         i32 = lambda t: t.to(torch.int32).contiguous()  # noqa: E731
@@ -327,24 +399,26 @@ def phase_kernels(key: SyntheticKey, z_std, device) -> list[dict]:
         # the main scan's runs: overflow past the spill cut is left out
         length = i32(plan.spill_plan(length, max(1, n // plan.nb))[0])
         start = i32(start)
-        acc0 = C.identity(plan.lanes, group, device)
+        acc0 = C.identity(plan.lanes, group, device, curve)
         steps = int(length.max())
 
         def k1():
-            return C.bucket_madd_rows(acc0, tbl, perm, lane_base, start, length, 0, steps, group)
+            return C.bucket_madd_rows(
+                acc0, tbl, perm, lane_base, start, length, 0, steps, group, curve)
 
         out = k1()
         ms = cuda_ms(k1)
         ref, pms = plain_time(lambda: C.bucket_madd_rows_plain(
-            acc0, tbl, perm, lane_base, start, length, 0, steps, group))
+            acc0, tbl, perm, lane_base, start, length, 0, steps, group, curve))
         err = max_abs_err(out, ref)
+        del ref
         adds = int(length.sum())  # rows this run adds (identity rows included)
         pt_bytes = out[0].numel() * 4
         # bytes: table, payloads and per-lane runs read once, accumulators
         # read and written once
-        rows.append(kernel_row(f"bucket_madd_rows_{group}", "snark_tpu_torch/csrc/curve.cu",
-              "snark_tpu/ops/pallas_curve.py:754", ms, pms, err,
-              adds * MULS[f"madd_{group}"] * IMAD_PER_MUL,
+        rows.append(kernel_row(_native.counter_name("bucket_madd_rows", curve.name, group),
+              curve_src, "snark_tpu/ops/pallas_curve.py:754", ms, pms, err,
+              adds * MULS[f"madd_{group}"] * fq_mul,
               tbl.numel() + perm.numel() * 4 + plan.lanes * (2 * pt_bytes + 12)))
 
         # K2 on the scan's output: one suffix-scan step (stride 1)
@@ -352,41 +426,43 @@ def phase_kernels(key: SyntheticKey, z_std, device) -> list[dict]:
         mask = torch.as_tensor(plan.scan[0], device=device)
 
         def k2():
-            return C.masked_add(out, q, mask, group)
+            return C.masked_add(out, q, mask, group, curve)
 
         o2 = k2()
         ms2 = cuda_ms(k2)
-        ref2, pms2 = plain_time(lambda: C.masked_add_plain(out, q, mask, group))
+        ref2, pms2 = plain_time(lambda: C.masked_add_plain(out, q, mask, group, curve))
         err2 = max_abs_err(o2, ref2)
         active = int(mask.sum())
-        rows.append(kernel_row(f"masked_add_{group}", "snark_tpu_torch/csrc/curve.cu",
-              "snark_tpu/ops/pallas_curve.py:716", ms2, pms2, err2,
-              active * MULS[f"add_{group}"] * IMAD_PER_MUL,
+        rows.append(kernel_row(_native.counter_name("masked_add", curve.name, group),
+              curve_src, "snark_tpu/ops/pallas_curve.py:716", ms2, pms2, err2,
+              active * MULS[f"add_{group}"] * fq_mul,
               plan.lanes * (3 * pt_bytes + 1)))
+        del out, q, o2, ref2, perm, start, length, lane_base, acc0
+        torch.cuda.empty_cache()
 
     # K3, K4 at the domain size
     n = pk.domain_size
     rng = random.Random(11)
-    x = FR.tensor([rng.randrange(FR.p) for _ in range(n)], device)
-    y = FR.tensor([rng.randrange(FR.p) for _ in range(n)], device)
-    plan = N.NttPlan(n, device)
+    x = fr.tensor([rng.randrange(fr.p) for _ in range(n)], device)
+    y = fr.tensor([rng.randrange(fr.p) for _ in range(n)], device)
+    plan = N.NttPlan(n, device, fr)
     s = 9  # a middle stage: half = 512
     for dif in (False, True):
-        o3 = N.ntt_stage(x, plan.inv_tw, s, n >> (s + 1), dif)
-        ref3 = N.ntt_stage_plain(x, plan.inv_tw, s, n >> (s + 1), dif)
+        o3 = N.ntt_stage(x, plan.inv_tw, s, n >> (s + 1), dif, fr)
+        ref3 = N.ntt_stage_plain(x, plan.inv_tw, s, n >> (s + 1), dif, fr)
         max_abs_err(o3, ref3)
-    ms3 = cuda_ms(lambda: N.ntt_stage(x, plan.inv_tw, s, n >> (s + 1), False))
-    _, pms3 = plain_time(lambda: N.ntt_stage_plain(x, plan.inv_tw, s, n >> (s + 1), False))
-    rows.append(kernel_row("ntt_stage", "snark_tpu_torch/csrc/ntt.cu",
+    ms3 = cuda_ms(lambda: N.ntt_stage(x, plan.inv_tw, s, n >> (s + 1), False, fr))
+    _, pms3 = plain_time(lambda: N.ntt_stage_plain(x, plan.inv_tw, s, n >> (s + 1), False, fr))
+    rows.append(kernel_row(_native.counter_name("ntt_stage", curve.name), ntt_src,
           "snark_tpu/ops/ntt_plane.py:158", ms3, pms3, 0,
           (n // 2) * IMAD_PER_MUL, n * 64 + (1 << s) * 32))
 
     for mode in ("mul", "add", "hadamard"):
-        o4 = N.field_ew(mode, x, y, plan.coset_scale_rev, plan.z_coset_inv)
-        max_abs_err(o4, N.field_ew_plain(mode, x, y, plan.coset_scale_rev, plan.z_coset_inv))
-    ms4 = cuda_ms(lambda: N.field_ew("mul", x, y))
-    _, pms4 = plain_time(lambda: N.field_ew_plain("mul", x, y))
-    rows.append(kernel_row("field_ew", "snark_tpu_torch/csrc/ntt.cu",
+        o4 = N.field_ew(mode, x, y, plan.coset_scale_rev, plan.z_coset_inv, fr)
+        max_abs_err(o4, N.field_ew_plain(mode, x, y, plan.coset_scale_rev, plan.z_coset_inv, fr))
+    ms4 = cuda_ms(lambda: N.field_ew("mul", x, y, field=fr))
+    _, pms4 = plain_time(lambda: N.field_ew_plain("mul", x, y, field=fr))
+    rows.append(kernel_row(_native.counter_name("field_ew", curve.name), ntt_src,
           "snark_tpu/ops/ntt_plane.py:197", ms4, pms4, 0, n * IMAD_PER_MUL, n * 96))
     return rows
 
@@ -482,26 +558,33 @@ def phase_kernels_msm(inputs: dict, device) -> tuple[list[dict], dict]:
     return rows, extra
 
 
-def phase_prove_fixture(device, affine_msm: bool = False) -> dict:
-    from snark_tpu_torch.fields.params import BN254
+def phase_prove_fixture(device, affine_msm: bool = False, bls: bool = False) -> dict:
+    """The committed fixture of BN254 (MulChain(4, 1023), m = 2048) or of
+    BLS12-381 (MulChain(7, 12), m = 26) at its committed (r, s)."""
+    from snark_tpu_torch.fields.params import BLS12_381, BN254
     from snark_tpu_torch.groth16 import Groth16, ProvingKey
     from snark_tpu_torch.models import MulChainCircuit
     from snark_tpu_torch.snark import serialize as ser
 
-    with open(FIXTURE_PROOF) as f:
+    curve, pk_path, proof_path, circuit = (
+        (BLS12_381, FIXTURE_PK_BLS, FIXTURE_PROOF_BLS, MulChainCircuit(seed=7, n=12)) if bls
+        else (BN254, FIXTURE_PK, FIXTURE_PROOF, MulChainCircuit(seed=4, n=1023))
+    )
+    with open(proof_path) as f:
         want = json.load(f)
-    pk = ProvingKey.load(FIXTURE_PK, device=device)
-    g16 = Groth16(device=device, affine_msm=affine_msm)
-    z = MulChainCircuit(seed=4, n=1023).assignment(BN254.fr.modulus)
+    pk = ProvingKey.load(pk_path, device=device)
+    g16 = Groth16(curve, device=device, affine_msm=affine_msm)
+    z = circuit.assignment(curve.fr.modulus)
     t = time.time()
     proof = g16.prove_from_assignment(pk, z, int(want["r"]), int(want["s"]))
     prove_s = time.time() - t
-    got = ser.serialize_proof(proof, BN254).hex()
+    got = ser.serialize_proof(proof, curve).hex()
     if got != want["proof_bytes_hex"]:
-        raise AssertionError(f"fixture proof differs from the JAX package's: {got}")
+        raise AssertionError(f"{curve.name} fixture proof differs from the JAX package's: {got}")
     if not g16.verify(pk.vk, want["public_input"], proof):
-        raise AssertionError("fixture proof does not verify")
-    return {"equal_to_jax_proof": True, "verifies": True, "prove_seconds": round(prove_s, 3)}
+        raise AssertionError(f"{curve.name} fixture proof does not verify")
+    return {"m": len(z), "equal_to_jax_proof": True, "verifies": True,
+            "prove_seconds": round(prove_s, 3)}
 
 
 def phase_prove_full(key: SyntheticKey, z: list[int], device, affine_msm: bool = False):
@@ -509,13 +592,12 @@ def phase_prove_full(key: SyntheticKey, z: list[int], device, affine_msm: bool =
     import torch
 
     from snark_tpu_torch import _native
-    from snark_tpu_torch.fields.limbs import FR
     from snark_tpu_torch.groth16 import Groth16, assemble_proof
 
-    pk = key.pk
+    pk, fr = key.pk, key.fr
     rng = random.Random(2024)
-    r, s = rng.randrange(FR.p), rng.randrange(FR.p)
-    g16 = Groth16(device=device, affine_msm=affine_msm)
+    r, s = rng.randrange(fr.p), rng.randrange(fr.p)
+    g16 = Groth16(key.curve, device=device, affine_msm=affine_msm)
     g16.ntt_plan(pk.domain_size)  # host-built twiddles: set-up, not prove time
     torch.cuda.reset_peak_memory_stats()
     _native.reset_launches()
@@ -524,7 +606,7 @@ def phase_prove_full(key: SyntheticKey, z: list[int], device, affine_msm: bool =
     prove_s = time.time() - t
     launches = dict(_native.LAUNCHES)
     run = g16.last_run
-    h = FR.decode(run.h_std, mont=False)
+    h = fr.decode(run.h_std, mont=False)
     ni = pk.num_instance
     n = pk.domain_size
     want = {
@@ -542,7 +624,8 @@ def phase_prove_full(key: SyntheticKey, z: list[int], device, affine_msm: bool =
     if proof != assemble_proof(g16, pk, want["A"], want["B"], want["B1"], want["L"], want["H"], r, s):
         raise AssertionError("proof differs from assemble_proof on the oracle sums")
     info = {
-        "constraints": pk.num_constraints, "m": ni + pk.num_witness, "domain": n,
+        "curve": key.curve.name, "constraints": pk.num_constraints,
+        "m": ni + pk.num_witness, "domain": n, "table_bytes": key.table_bytes(),
         "prove_seconds": round(prove_s, 3),
         "stage_ms": {k: round(v, 3) for k, v in run.stage_ms.items()},
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
@@ -602,16 +685,16 @@ def main() -> int:
     print(smi, flush=True)
 
     t0 = time.time()
-    phase_line("build", t0, **phase_build())
+    build = phase_build()
+    phase_line("build", t0, **build)
 
     from snark_tpu_torch import bench as B
-    from snark_tpu_torch.fields.limbs import FR
-    from snark_tpu_torch.fields.params import BN254
+    from snark_tpu_torch.fields.params import BLS12_381
 
     t0 = time.time()
     key = SyntheticKey(FULL_N, seed=1, device=device)
-    z = key.circuit.assignment(BN254.fr.modulus)
-    z_std = FR.tensor(z, device, mont=False)
+    z = key.circuit.assignment(key.curve.fr.modulus)
+    z_std = key.fr.tensor(z, device, mont=False)
     inputs = {g: B.make_inputs(BENCH_LOG_N[g], signed=True, c=BENCH_C, group=g, device=device)
               for g in ("g1", "g2")}
     phase_line("setup", t0, constraints=FULL_N, m=len(z), domain=key.pk.domain_size,
@@ -640,15 +723,43 @@ def main() -> int:
     info_b, bench_launches = phase_msm_bench(inputs, smi)
     phase_line("msm_bench", t0, **info_b, launches={k: v for k, v in bench_launches.items() if v})
 
+    # BLS12-381, after the BN254 phases and with their data freed, so that
+    # those run on the device memory they always had
+    del key, z, z_std, inputs
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    key_bls = SyntheticKey(FULL_N_BLS, seed=1, device=device, curve=BLS12_381)
+    z_bls = key_bls.circuit.assignment(BLS12_381.fr.modulus)
+    z_std_bls = key_bls.fr.tensor(z_bls, device, mont=False)
+    phase_line("setup_bls", t0, constraints=FULL_N_BLS, m=len(z_bls),
+               domain=key_bls.pk.domain_size, table_bytes=key_bls.table_bytes())
+
+    t0 = time.time()
+    bls_rows = phase_kernels(key_bls, z_std_bls, device)
+    del z_std_bls
+    torch.cuda.empty_cache()
+    phase_line("kernels_bls", t0, all_equal=True, kernels=bls_rows)
+
+    t0 = time.time()
+    phase_line("prove_fixture_bls", t0, **phase_prove_fixture(device, bls=True))
+
+    t0 = time.time()
+    info_bls, launches_bls, _ = phase_prove_full(key_bls, z_bls, device)
+    phase_line("prove_full_bls", t0, nvidia_smi=smi, **info_bls)
+
     for row in rows:
         row["launches"] = launches[row["name"]]
+    for row in bls_rows:
+        row["launches"] = launches_bls[row["name"]]
     for row in msm_rows:
         row["launches"] = bench_launches[row["name"]]
-    for row in rows + msm_rows:
+    rows = rows + bls_rows + msm_rows
+    for row in rows:
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} was not launched on the main path")
+        row["ptxas"] = build["ptxas"].get(kernel_template(row["name"]))
     print(smi, flush=True)
-    print(json.dumps({"kernels": rows + msm_rows}), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -36,40 +36,78 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # group, acc_in, acc_out, table, row_bytes, perm, lane_base, start,
-    # length, lanes, i0, k_steps, stream
-    "snark_bucket_madd_rows": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
-    # group, p, q, mask, out, lanes, stream
-    "snark_masked_add": [_I, _P, _P, _P, _P, _I, _P],
-    # x, y, tw, n, log_half, tw_stride, dif, stream
-    "snark_ntt_stage": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # mode, out, a, b, c, d, n, b_bcast, stream
-    "snark_field_ew": [_I, _P, _P, _P, _P, _P, _I, _I, _P],
-    # group, p, out, lanes, stream
-    "snark_point_double": [_I, _P, _P, _I, _P],
-    # group, rows, row_bytes, sgn, den, cls, pairs, stream
-    "snark_affine_phase1": [_I, _P, _I, _P, _P, _P, _I, _P],
-    # group, mode, a, b, out, n, stream
-    "snark_affine_tree_mul": [_I, _I, _P, _P, _P, _I, _P],
-    # group, rows, row_bytes, sgn, dinv, cls, out, pairs, stream
-    "snark_affine_phase3": [_I, _P, _I, _P, _P, _P, _P, _I, _P],
+    # curve, group, acc_in, acc_out, table, row_bytes, perm, lane_base,
+    # start, length, lanes, i0, k_steps, stream
+    "snark_bucket_madd_rows": [_I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    # curve, group, p, q, mask, out, lanes, stream
+    "snark_masked_add": [_I, _I, _P, _P, _P, _P, _I, _P],
+    # curve, x, y, tw, n, log_half, tw_stride, dif, stream
+    "snark_ntt_stage": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
+    # curve, mode, out, a, b, c, d, n, b_bcast, stream
+    "snark_field_ew": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _P],
+    # curve, group, p, out, lanes, stream
+    "snark_point_double": [_I, _I, _P, _P, _I, _P],
+    # curve, group, rows, row_bytes, sgn, den, cls, pairs, stream
+    "snark_affine_phase1": [_I, _I, _P, _I, _P, _P, _P, _I, _P],
+    # curve, group, mode, a, b, out, n, stream
+    "snark_affine_tree_mul": [_I, _I, _I, _P, _P, _P, _I, _P],
+    # curve, group, rows, row_bytes, sgn, dinv, cls, out, pairs, stream
+    "snark_affine_phase3": [_I, _I, _P, _I, _P, _P, _P, _P, _I, _P],
 }
 
-# Launch counts, one per kernel instance (the curve kernels per group):
-# each wrapper adds one where it launches. `point_add` is K2 launched
-# without a mask by its own wrapper.
-LAUNCHES = {
-    **{
-        f"{k}_{g}": 0
-        for k in (
-            "bucket_madd_rows", "masked_add", "point_add", "point_double",
-            "affine_phase1", "affine_tree_mul", "affine_phase3",
-        )
-        for g in ("g1", "g2")
+# The curve code every entry point takes first (csrc/field.cuh), and the
+# kernels each curve has instances of. An entry point returns NOT_PORTED
+# for a curve it has no instance for; the wrappers refuse such a call
+# before it reaches the library (`require_ported`).
+CURVE_CODES = {"bn254": 0, "bls12_381": 1}
+NOT_PORTED = -1
+_PORTED = {
+    "bn254": {
+        "bucket_madd_rows", "masked_add", "point_double", "ntt_stage", "field_ew",
+        "affine_phase1", "affine_tree_mul", "affine_phase3",
     },
-    "ntt_stage": 0,
-    "field_ew": 0,
+    "bls12_381": {"bucket_madd_rows", "masked_add", "ntt_stage", "field_ew"},
 }
+
+
+def counter_name(kernel: str, curve: str, group: str | None = None) -> str:
+    """The launch counter of one kernel instance: `bucket_madd_rows_g1`,
+    `ntt_stage` for BN254 (the names of the first slices), and the curve
+    between kernel and group for the others (`bucket_madd_rows_bls12_381_g1`,
+    `ntt_stage_bls12_381`)."""
+    parts = [kernel] + ([] if curve == "bn254" else [curve]) + ([group] if group else [])
+    return "_".join(parts)
+
+
+def require_ported(kernel: str, curve: str) -> None:
+    """Raise for a kernel that has no instance for this curve (the K5-K8
+    BLS12-381 instances are not written yet): no other curve's arithmetic
+    runs in its place."""
+    if kernel not in _PORTED.get(curve, ()):
+        raise NotImplementedError(
+            f"{kernel} has no {curve} instance yet (ported for {curve}: "
+            f"{', '.join(sorted(_PORTED.get(curve, ()))) or 'none'})"
+        )
+
+
+def _counters() -> dict:
+    """Launch counts, one per kernel instance (the curve kernels per group):
+    each wrapper adds one where it launches. `point_add` is K2 launched
+    without a mask by its own wrapper."""
+    out = {}
+    for curve, kernels in _PORTED.items():
+        for k in sorted(kernels):
+            if k in ("ntt_stage", "field_ew"):
+                out[counter_name(k, curve)] = 0
+                continue
+            for g in ("g1", "g2"):
+                out[counter_name(k, curve, g)] = 0
+                if k == "masked_add":
+                    out[counter_name("point_add", curve, g)] = 0
+    return out
+
+
+LAUNCHES = _counters()
 
 
 def reset_launches() -> None:
@@ -141,14 +179,14 @@ def build() -> BuildResult:
         )
         jobs.append((obj, proc))
     try:
-        log, failed = "", []
+        log, failed = "", ""
         for obj, proc in jobs:
             out, _ = proc.communicate()
             log += out
-            if proc.returncode != 0:
-                failed.append(proc.returncode)
+            if proc.returncode != 0:  # only the failing sources' output
+                failed += f"{os.path.basename(obj).split('.')[0]}.cu: exit {proc.returncode}\n{out}"
         if failed:
-            raise RuntimeError(f"nvcc failed ({failed}):\n{log}")
+            raise RuntimeError(f"nvcc failed:\n{failed}")
         tmp = f"{lib}.{tag}"
         link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp]
         proc = subprocess.run(link + [o for o, _ in jobs], capture_output=True, text=True)
@@ -177,11 +215,14 @@ def _library() -> ctypes.CDLL:
 
 
 def launch(kernel: str, counter: str, *args) -> None:
-    """Call `snark_<kernel>` on the current stream, add one to
-    LAUNCHES[counter] and raise if the launch was refused."""
+    """Call `snark_<kernel>` on the current stream (args begin with the
+    curve code), add one to LAUNCHES[counter] and raise if the launch was
+    refused."""
     fn = getattr(_library(), "snark_" + kernel)
     code = fn(*args, torch.cuda.current_stream().cuda_stream)
     LAUNCHES[counter] += 1
+    if code == NOT_PORTED:
+        raise NotImplementedError(f"{kernel}: the library has no instance for curve code {args[0]}")
     if code != 0:
         raise RuntimeError(f"{kernel}: CUDA error {code} at launch")
 

@@ -1,5 +1,6 @@
 // Batch-affine bucket accumulation kernels, for BN254 G1 (over Fq) and G2
-// (over Fq2).
+// (over Fq2). They have no BLS12-381 instances yet: each entry point
+// refuses any curve code but kBn254.
 //
 // K6 affine_phase1 replaces snark_tpu/ops/msm_affine.py phase1_kernel
 //   (_decode_pair, _preds_from_sides, _phase1_body): decode a pair of rows,
@@ -61,7 +62,7 @@ struct Pair {
 template <class E>
 __device__ __forceinline__ Pair<E> load_pair(const uint8_t* rows, int row_bytes,
                                              const uint8_t* sgn, int j) {
-  const int flag_at = 2 * kRowDigits * Curve<E>::K;
+  constexpr int flag_at = 2 * Curve<E>::kRowDigits * Curve<E>::K;
   const uint8_t* l = rows + (size_t)(2 * j) * row_bytes;
   const uint8_t* r = l + row_bytes;
   Pair<E> p;
@@ -96,7 +97,7 @@ __global__ void affine_phase1_kernel(const uint8_t* __restrict__ rows, int row_b
   E d = Curve<E>::one();
   if (c == kAdd) d = p.x2 - p.x1;
   if (c == kDouble) d = p.y1 + p.y1;
-  Curve<E>::store(den + (size_t)j * 8 * Curve<E>::K, d);
+  Curve<E>::store(den + (size_t)j * Curve<E>::W, d);
   cls[j] = c;
 }
 
@@ -119,7 +120,7 @@ __global__ void affine_phase3_kernel(const uint8_t* __restrict__ rows, int row_b
       const E sq = p.x1 * p.x1;
       num = (sq + sq) + sq;
     }
-    const E lam = num * Curve<E>::load(dinv + (size_t)j * 8 * Curve<E>::K);
+    const E lam = num * Curve<E>::load(dinv + (size_t)j * Curve<E>::W);
     x3 = (lam * lam - p.x1) - p.x2;
     y3 = lam * (p.x1 - x3) - p.y1;
   } else if (c == kCopyL) {
@@ -134,7 +135,7 @@ __global__ void affine_phase3_kernel(const uint8_t* __restrict__ rows, int row_b
   }
   uint8_t* o = out + (size_t)j * row_bytes;
   encode_row(o, x3, y3);
-  o[2 * kRowDigits * Curve<E>::K] = c == kDead ? 0 : 1;
+  o[2 * Curve<E>::kRowDigits * Curve<E>::K] = c == kDead ? 0 : 1;
 }
 
 // a^(q - 2) = a^-1 (0 for a = 0), square and multiply from the top bit.
@@ -159,7 +160,7 @@ template <class E>
 __global__ void affine_tree_mul_kernel(const uint32_t* __restrict__ a,
                                        const uint32_t* __restrict__ b,
                                        uint32_t* __restrict__ out, int n, int mode) {
-  constexpr int W = 8 * Curve<E>::K;
+  constexpr int W = Curve<E>::W;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const E x = Curve<E>::load(a + (size_t)i * W);
@@ -173,8 +174,10 @@ constexpr int kAffineBlock = 128;
 
 using namespace snark;
 
-extern "C" int snark_affine_phase1(int group, const void* rows, int row_bytes, const void* sgn,
-                                   void* den, void* cls, int pairs, void* stream) {
+extern "C" int snark_affine_phase1(int curve, int group, const void* rows, int row_bytes,
+                                   const void* sgn, void* den, void* cls, int pairs,
+                                   void* stream) {
+  if (curve != kBn254) return kNotPorted;
   if (pairs <= 0) return 0;
   dim3 grid((pairs + kAffineBlock - 1) / kAffineBlock);
   cudaStream_t s = (cudaStream_t)stream;
@@ -189,9 +192,10 @@ extern "C" int snark_affine_phase1(int group, const void* rows, int row_bytes, c
   return (int)cudaGetLastError();
 }
 
-extern "C" int snark_affine_phase3(int group, const void* rows, int row_bytes, const void* sgn,
-                                   const void* dinv, const void* cls, void* out, int pairs,
-                                   void* stream) {
+extern "C" int snark_affine_phase3(int curve, int group, const void* rows, int row_bytes,
+                                   const void* sgn, const void* dinv, const void* cls, void* out,
+                                   int pairs, void* stream) {
+  if (curve != kBn254) return kNotPorted;
   if (pairs <= 0) return 0;
   dim3 grid((pairs + kAffineBlock - 1) / kAffineBlock);
   cudaStream_t s = (cudaStream_t)stream;
@@ -207,8 +211,9 @@ extern "C" int snark_affine_phase3(int group, const void* rows, int row_bytes, c
   return (int)cudaGetLastError();
 }
 
-extern "C" int snark_affine_tree_mul(int group, int mode, const void* a, const void* b,
-                                     void* out, int n, void* stream) {
+extern "C" int snark_affine_tree_mul(int curve, int group, int mode, const void* a,
+                                     const void* b, void* out, int n, void* stream) {
+  if (curve != kBn254) return kNotPorted;
   if (n <= 0) return 0;
   dim3 grid((n + kAffineBlock - 1) / kAffineBlock);
   cudaStream_t s = (cudaStream_t)stream;

@@ -1,17 +1,22 @@
-// BN254 curve arithmetic shared by the curve kernels (curve.cu) and the
-// batch-affine kernels (affine.cu): G1 over Fq, G2 over Fq2.
+// Curve arithmetic shared by the curve kernels (curve.cu, curve_bls.cu) and
+// the batch-affine kernels (affine.cu): G1 over Fq, G2 over Fq2, for BN254
+// (Fq 8 limbs) and BLS12-381 (Fq 12 limbs), from one template over the
+// base field's params (field.cuh) and the per-curve constants below.
 //
 // Points are projective (X, Y, Z) in the port's limb format (field.cuh):
-// a lane is 3 * K * 8 u32 words, K = 1 for G1 and 2 for G2, contiguous.
-// The formulas are the complete ones of Renes-Costello-Batina 2015 for
-// a = 0 (Alg 7 projective add, Alg 8 mixed add, Alg 9 double), so doubling,
-// identity and inverse inputs need no branches.
+// a lane is 3 * K * N u32 words, K = 1 for G1 and 2 for G2, N the base
+// field's limbs, contiguous. The formulas are the complete ones of
+// Renes-Costello-Batina 2015 for a = 0 (Alg 7 projective add, Alg 8 mixed
+// add, Alg 9 double), so doubling, identity and inverse inputs need no
+// branches. Both curves have a = 0 and Fq2 = Fq[u] / (u^2 + 1).
 //
 // Rows are the reference's u8 table layout: X digits || Y digits || identity
-// flag, each coordinate component 34 little-endian bytes of x * 2^272 mod q
-// (wide Montgomery, canonical; the top two bytes are zero). Decoding reads
-// the low 32 bytes and moves the value to R = 2^256 with one Montgomery
-// multiply by 2^240; encoding multiplies by 2^272 mod q and writes the 32
+// flag, each coordinate component D little-endian bytes of x * 2^(8 D) mod q
+// (wide Montgomery, canonical; the top two bytes are zero), D = 34 for
+// BN254 and 50 for BLS12-381 (2 L + 2 for L 16-bit limbs). Decoding reads
+// the low 4 N bytes and moves the value to R = 2^(32 N) with one Montgomery
+// multiply by 2^(32 N - 16): 2^240 for BN254, 2^368 for BLS12-381.
+// Encoding multiplies by 2^(8 D) mod q (2^272, 2^400) and writes the 4 N
 // bytes back with two zero bytes.
 #pragma once
 
@@ -21,9 +26,10 @@ namespace snark {
 
 using Fq = Fp<FqParams>;
 using Fq2 = Fp2<FqParams>;
+using BlsFq = Fp<BlsFqParams>;
+using BlsFq2 = Fp2<BlsFqParams>;
 
-constexpr int kRowDigits = 34;
-
+// ---- BN254 (checked against fields/params.py by the port's tests)
 // 2^240 mod q, raw (not Montgomery): mont_mul(x * 2^272, C) = x * 2^256.
 static __constant__ uint32_t kRowToMont[8] = {0, 0, 0, 0, 0, 0, 0, 0x00010000u};
 // 2^272 mod q, raw: mont_mul(x * 2^256, C) = x * 2^272.
@@ -44,51 +50,109 @@ static __constant__ uint32_t kB3G2[16] = {
     0x7596fe35u, 0xaab7c666u, 0xbb6a27bau, 0x31d21a78u,
     0x680401ffu, 0x85dd7297u, 0xdf39a7e9u, 0x03c52d6au};
 
+// ---- BLS12-381
+// 2^368, raw: mont_mul(x * 2^400, C) = x * 2^384.
+static __constant__ uint32_t kBlsRowToMont[12] = {
+    0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u,
+    0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u,
+    0x00000000u, 0x00000000u, 0x00000000u, 0x00010000u};
+// 2^400 mod q, raw: mont_mul(x * 2^384, C) = x * 2^400.
+static __constant__ uint32_t kBlsMontToRow[12] = {
+    0x480e6299u, 0x56350003u, 0x699eb128u, 0x8670deb2u,
+    0xf6697c98u, 0x0983e84eu, 0xa4e6fe97u, 0xe3e8a053u,
+    0x23ecf271u, 0x385c20d3u, 0x12866eb6u, 0x156da47fu};
+// 1 in Montgomery form, 2^384 mod q
+static __constant__ uint32_t kBlsOneMont[12] = {
+    0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu,
+    0x53c758bau, 0x5f489857u, 0x70525745u, 0x77ce5853u,
+    0xa256ec6du, 0x5c071a97u, 0xfa80e493u, 0x15f65ec3u};
+// 3b in Montgomery form: G1 b = 4, G2 b = 4 (1 + u)
+static __constant__ uint32_t kBlsB3G1[12] = {
+    0x0027552eu, 0x44760000u, 0x43480020u, 0xdcb8009au,
+    0x4a6e8b59u, 0x6f7ee9ceu, 0xc0a95bc6u, 0xb10330b7u,
+    0xfb1e54b7u, 0x6140b1fcu, 0x7f0bb4e1u, 0x0381be09u};
+static __constant__ uint32_t kBlsB3G2[24] = {
+    0x0027552eu, 0x44760000u, 0x43480020u, 0xdcb8009au,
+    0x4a6e8b59u, 0x6f7ee9ceu, 0xc0a95bc6u, 0xb10330b7u,
+    0xfb1e54b7u, 0x6140b1fcu, 0x7f0bb4e1u, 0x0381be09u,
+    0x0027552eu, 0x44760000u, 0x43480020u, 0xdcb8009au,
+    0x4a6e8b59u, 0x6f7ee9ceu, 0xc0a95bc6u, 0xb10330b7u,
+    0xfb1e54b7u, 0x6140b1fcu, 0x7f0bb4e1u, 0x0381be09u};
+
+// The constants of one curve, keyed by its base field's params.
+template <class P>
+struct CurveConsts;
+
+template <>
+struct CurveConsts<FqParams> {
+  static constexpr int kRowDigits = 34;
+  static __device__ __forceinline__ const uint32_t* row_to_mont() { return kRowToMont; }
+  static __device__ __forceinline__ const uint32_t* mont_to_row() { return kMontToRow; }
+  static __device__ __forceinline__ const uint32_t* one() { return kOneMont; }
+  static __device__ __forceinline__ const uint32_t* b3_g1() { return kB3G1; }
+  static __device__ __forceinline__ const uint32_t* b3_g2() { return kB3G2; }
+};
+
+template <>
+struct CurveConsts<BlsFqParams> {
+  static constexpr int kRowDigits = 50;
+  static __device__ __forceinline__ const uint32_t* row_to_mont() { return kBlsRowToMont; }
+  static __device__ __forceinline__ const uint32_t* mont_to_row() { return kBlsMontToRow; }
+  static __device__ __forceinline__ const uint32_t* one() { return kBlsOneMont; }
+  static __device__ __forceinline__ const uint32_t* b3_g1() { return kBlsB3G1; }
+  static __device__ __forceinline__ const uint32_t* b3_g2() { return kBlsB3G2; }
+};
+
 template <class E>
 struct Curve;
 
-template <>
-struct Curve<Fq> {
+// G1: E = Fp<P>
+template <class P>
+struct Curve<Fp<P>> {
+  using E = Fp<P>;
   static constexpr int K = 1;
-  static __device__ __forceinline__ Fq b3() { return load_fp<FqParams>(kB3G1); }
-  static __device__ __forceinline__ Fq one() { return load_fp<FqParams>(kOneMont); }
-  static __device__ __forceinline__ Fq zero() {
-    Fq z;
+  static constexpr int W = P::N;  // u32 words per element
+  static constexpr int kRowDigits = CurveConsts<P>::kRowDigits;
+  static __device__ __forceinline__ E b3() { return load_fp<P>(CurveConsts<P>::b3_g1()); }
+  static __device__ __forceinline__ E one() { return load_fp<P>(CurveConsts<P>::one()); }
+  static __device__ __forceinline__ E zero() {
+    E z;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) z.v[j] = 0;
+    for (int j = 0; j < P::N; ++j) z.v[j] = 0;
     return z;
   }
-  static __device__ __forceinline__ Fq load(const uint32_t* s) {
-    return load_fp<FqParams>(s);
-  }
-  static __device__ __forceinline__ void store(uint32_t* d, const Fq& a) {
-    store_fp<FqParams>(d, a);
-  }
-  static __device__ __forceinline__ bool eq(const Fq& a, const Fq& b) {
+  static __device__ __forceinline__ E load(const uint32_t* s) { return load_fp<P>(s); }
+  static __device__ __forceinline__ void store(uint32_t* d, const E& a) { store_fp<P>(d, a); }
+  static __device__ __forceinline__ bool eq(const E& a, const E& b) {
     uint32_t d = 0;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) d |= a.v[j] ^ b.v[j];
+    for (int j = 0; j < P::N; ++j) d |= a.v[j] ^ b.v[j];
     return d == 0;
   }
 };
 
-template <>
-struct Curve<Fq2> {
+// G2: E = Fp2<P>
+template <class P>
+struct Curve<Fp2<P>> {
+  using E = Fp2<P>;
+  using F = Curve<Fp<P>>;
   static constexpr int K = 2;
-  static __device__ __forceinline__ Fq2 b3() {
-    return {load_fp<FqParams>(kB3G2), load_fp<FqParams>(kB3G2 + 8)};
+  static constexpr int W = 2 * P::N;
+  static constexpr int kRowDigits = CurveConsts<P>::kRowDigits;
+  static __device__ __forceinline__ E b3() {
+    return {load_fp<P>(CurveConsts<P>::b3_g2()), load_fp<P>(CurveConsts<P>::b3_g2() + P::N)};
   }
-  static __device__ __forceinline__ Fq2 one() { return {Curve<Fq>::one(), Curve<Fq>::zero()}; }
-  static __device__ __forceinline__ Fq2 zero() { return {Curve<Fq>::zero(), Curve<Fq>::zero()}; }
-  static __device__ __forceinline__ Fq2 load(const uint32_t* s) {
-    return {load_fp<FqParams>(s), load_fp<FqParams>(s + 8)};
+  static __device__ __forceinline__ E one() { return {F::one(), F::zero()}; }
+  static __device__ __forceinline__ E zero() { return {F::zero(), F::zero()}; }
+  static __device__ __forceinline__ E load(const uint32_t* s) {
+    return {load_fp<P>(s), load_fp<P>(s + P::N)};
   }
-  static __device__ __forceinline__ void store(uint32_t* d, const Fq2& a) {
-    store_fp<FqParams>(d, a.c0);
-    store_fp<FqParams>(d + 8, a.c1);
+  static __device__ __forceinline__ void store(uint32_t* d, const E& a) {
+    store_fp<P>(d, a.c0);
+    store_fp<P>(d + P::N, a.c1);
   }
-  static __device__ __forceinline__ bool eq(const Fq2& a, const Fq2& b) {
-    return Curve<Fq>::eq(a.c0, b.c0) && Curve<Fq>::eq(a.c1, b.c1);
+  static __device__ __forceinline__ bool eq(const E& a, const E& b) {
+    return F::eq(a.c0, b.c0) && F::eq(a.c1, b.c1);
   }
 };
 
@@ -99,13 +163,13 @@ struct Point {
 
 template <class E>
 __device__ __forceinline__ Point<E> load_point(const uint32_t* s) {
-  constexpr int W = 8 * Curve<E>::K;
+  constexpr int W = Curve<E>::W;
   return {Curve<E>::load(s), Curve<E>::load(s + W), Curve<E>::load(s + 2 * W)};
 }
 
 template <class E>
 __device__ __forceinline__ void store_point(uint32_t* d, const Point<E>& p) {
-  constexpr int W = 8 * Curve<E>::K;
+  constexpr int W = Curve<E>::W;
   Curve<E>::store(d, p.x);
   Curve<E>::store(d + W, p.y);
   Curve<E>::store(d + 2 * W, p.z);
@@ -167,49 +231,59 @@ __device__ __forceinline__ Point<E> pdbl(const Point<E>& p) {
 
 // ---- rows
 
-// One coordinate component of a u8 row: 32 little-endian bytes of x * 2^272.
-__device__ __forceinline__ Fq decode_component(const uint8_t* src) {
-  Fq w;
+// One coordinate component of a u8 row: the low 4 N bytes of x * 2^(8 D).
+template <class P>
+__device__ __forceinline__ Fp<P> decode_component(const uint8_t* src) {
+  Fp<P> w;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < P::N; ++j) {
     w.v[j] = (uint32_t)src[4 * j] | ((uint32_t)src[4 * j + 1] << 8) |
              ((uint32_t)src[4 * j + 2] << 16) | ((uint32_t)src[4 * j + 3] << 24);
   }
-  return w * load_fp<FqParams>(kRowToMont);
+  return w * load_fp<P>(CurveConsts<P>::row_to_mont());
 }
 
-// The inverse of decode_component: 34 bytes of x * 2^272 mod q (canonical).
-__device__ __forceinline__ void encode_component(uint8_t* dst, const Fq& a) {
-  const Fq w = a * load_fp<FqParams>(kMontToRow);
+// The inverse of decode_component: D bytes of x * 2^(8 D) mod q (canonical).
+template <class P>
+__device__ __forceinline__ void encode_component(uint8_t* dst, const Fp<P>& a) {
+  const Fp<P> w = a * load_fp<P>(CurveConsts<P>::mont_to_row());
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < P::N; ++j) {
 #pragma unroll
     for (int b = 0; b < 4; ++b) dst[4 * j + b] = (uint8_t)(w.v[j] >> (8 * b));
   }
-  dst[32] = 0;
-  dst[33] = 0;
+#pragma unroll
+  for (int b = 4 * P::N; b < CurveConsts<P>::kRowDigits; ++b) dst[b] = 0;
 }
 
-__device__ __forceinline__ void decode_row(const uint8_t* row, Fq& x, Fq& y) {
-  x = decode_component(row);
-  y = decode_component(row + kRowDigits);
+template <class P>
+__device__ __forceinline__ void decode_row(const uint8_t* row, Fp<P>& x, Fp<P>& y) {
+  constexpr int D = CurveConsts<P>::kRowDigits;
+  x = decode_component<P>(row);
+  y = decode_component<P>(row + D);
 }
 
-__device__ __forceinline__ void decode_row(const uint8_t* row, Fq2& x, Fq2& y) {
-  x = {decode_component(row), decode_component(row + kRowDigits)};
-  y = {decode_component(row + 2 * kRowDigits), decode_component(row + 3 * kRowDigits)};
+template <class P>
+__device__ __forceinline__ void decode_row(const uint8_t* row, Fp2<P>& x, Fp2<P>& y) {
+  constexpr int D = CurveConsts<P>::kRowDigits;
+  x = {decode_component<P>(row), decode_component<P>(row + D)};
+  y = {decode_component<P>(row + 2 * D), decode_component<P>(row + 3 * D)};
 }
 
-__device__ __forceinline__ void encode_row(uint8_t* row, const Fq& x, const Fq& y) {
-  encode_component(row, x);
-  encode_component(row + kRowDigits, y);
+template <class P>
+__device__ __forceinline__ void encode_row(uint8_t* row, const Fp<P>& x, const Fp<P>& y) {
+  constexpr int D = CurveConsts<P>::kRowDigits;
+  encode_component<P>(row, x);
+  encode_component<P>(row + D, y);
 }
 
-__device__ __forceinline__ void encode_row(uint8_t* row, const Fq2& x, const Fq2& y) {
-  encode_component(row, x.c0);
-  encode_component(row + kRowDigits, x.c1);
-  encode_component(row + 2 * kRowDigits, y.c0);
-  encode_component(row + 3 * kRowDigits, y.c1);
+template <class P>
+__device__ __forceinline__ void encode_row(uint8_t* row, const Fp2<P>& x, const Fp2<P>& y) {
+  constexpr int D = CurveConsts<P>::kRowDigits;
+  encode_component<P>(row, x.c0);
+  encode_component<P>(row + D, x.c1);
+  encode_component<P>(row + 2 * D, y.c0);
+  encode_component<P>(row + 3 * D, y.c1);
 }
 
 }  // namespace snark

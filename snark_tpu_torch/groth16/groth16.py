@@ -1,9 +1,12 @@
-"""Groth16 prove and verify over BN254 on one CUDA device.
+"""Groth16 prove and verify over BN254 and BLS12-381 on one CUDA device.
 
 Counterpart of the JAX package's `groth16/groth16.py`: `ProvingKey.load`
 reads the npz files that the JAX package's `ProvingKey.save` writes, and
 `Groth16.prove_from_assignment` is `_prove_from_assignment` on its plane
-branch (m >= 2048 variables):
+branch. The reference takes that branch from m = 2048 variables and a
+legacy XLA path below; the port runs the plane path at every size, and the
+proof is the same, since the five MSM sums are group elements whatever
+path computes them:
 
 1. witness upload, Montgomery conversion (K4), three padded-CSR matvecs;
 2. evaluation padding (instance rows on the A side, zeros);
@@ -14,7 +17,8 @@ branch (m >= 2048 variables):
    each finished by a host Horner combine; with `affine_msm=True` the
    buckets of an MSM with at least 8 elements per bucket are accumulated
    by the batch-affine tree (K6-K8, `ops/msm_affine.py`) instead, as the
-   reference does under SNARK_TPU_MSM_AFFINE=1;
+   reference does under SNARK_TPU_MSM_AFFINE=1 (BN254 only: K6-K8 have no
+   BLS12-381 instances yet);
 6. `assemble_proof` on the host. `verify` pairs on the host.
 
 Proofs follow the arkworks conventions (eprint 2016/260):
@@ -32,8 +36,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..fields.limbs import FR
-from ..fields.params import BN254, CurveParams, get_curve
+from ..fields.limbs import fields_of
+from ..fields.params import BLS12_381, BN254, CurveParams, get_curve
+from ..ops.curve import row_bytes
 from ..ops.curve_host import host_g1, host_g2
 from ..ops.msm import pick_window_plane_signed, signed_digits
 from ..ops.msm_plane import PlaneMsm
@@ -41,7 +46,7 @@ from ..ops.ntt import NttPlan, from_mont, to_mont
 from .pairing import get_pairing
 from .qap import PaddedCsr, matvec
 
-PLANE_MIN_VARIABLES = 2048  # the reference's plane-path threshold
+PORTED_CURVES = (BN254, BLS12_381)
 QUERY_NAMES = ("a_query", "b_g1_query", "b_g2_query", "h_query", "l_query")
 
 
@@ -108,15 +113,19 @@ class ProvingKey:
         dev = resolve_device(device)
         with np.load(path, allow_pickle=False) as z:
             curve = get_curve(str(z["curve"]))
-            if curve is not BN254:
-                raise ValueError(f"only BN254 keys are ported, got {curve.name}")
+            if curve not in PORTED_CURVES:
+                raise ValueError(f"no port for {curve.name} keys")
             vk = ser.deserialize_vk(z["vk"].tobytes(), curve)
             beta_g1, _ = ser.deserialize_g1(curve, z["beta_g1"].tobytes())
             delta_g1, _ = ser.deserialize_g1(curve, z["delta_g1"].tobytes())
             sizes = [int(v) for v in z["sizes"]]
 
             def tbl(name):
-                return torch.as_tensor(z[name], device=dev)
+                rows = z[name]
+                rb = row_bytes("g2" if name == "b_g2_tbl" else "g1", curve)
+                if rows.shape[1:] != (rb,):
+                    raise ValueError(f"{name}: rows of {rows.shape[1:]} bytes, want {rb}")
+                return torch.as_tensor(rows, device=dev)
 
             def csr(prefix):
                 return PaddedCsr.from_reference(
@@ -184,15 +193,21 @@ class ProveRun:
 
 
 class Groth16:
-    """Groth16 over BN254 on one device (`"cuda"` by default). The MSMs
-    accumulate their buckets with the scan, or with the batch-affine tree
-    where it applies when `affine_msm` is set (off by default, as in the
-    reference)."""
+    """Groth16 over BN254 or BLS12-381 on one device (`"cuda"` by default).
+    The MSMs accumulate their buckets with the scan, or, on BN254, with the
+    batch-affine tree where it applies when `affine_msm` is set (off by
+    default, as in the reference)."""
 
     def __init__(self, curve: CurveParams = BN254, device="cuda", affine_msm: bool = False):
-        if curve is not BN254:
-            raise ValueError("only BN254 is ported")
+        if curve not in PORTED_CURVES:
+            raise ValueError(f"no port for {curve.name}")
+        if affine_msm and curve is not BN254:
+            raise NotImplementedError(
+                f"affine_msm needs K6-K8 (affine_phase1, affine_tree_mul, affine_phase3),"
+                f" which have no {curve.name} instances yet"
+            )
         self.curve = curve
+        self.fr = fields_of(curve)[0]
         self.device = resolve_device(device)
         self.affine_msm = affine_msm
         self.hg1 = host_g1(curve)
@@ -204,14 +219,15 @@ class Groth16:
 
     def ntt_plan(self, n: int) -> NttPlan:
         if n not in self._ntt:
-            self._ntt[n] = NttPlan(n, self.device)
+            self._ntt[n] = NttPlan(n, self.device, self.fr)
         return self._ntt[n]
 
     def msm_plan(self, c: int, group: str) -> PlaneMsm:
         key = (c, group)
         if key not in self._msm:
             self._msm[key] = PlaneMsm(
-                c, self.curve.fr.num_bits, group, signed=True, affine=self.affine_msm
+                c, self.curve.fr.num_bits, group, signed=True, affine=self.affine_msm,
+                curve=self.curve,
             )
         return self._msm[key]
 
@@ -219,9 +235,10 @@ class Groth16:
     def witness_evals(self, pk: ProvingKey, z_std: torch.Tensor):
         """Stages 1-2: -> (a, b, c) Montgomery evaluations on the domain."""
         n, ni, nc = pk.domain_size, pk.num_instance, pk.num_constraints
-        z_mont = to_mont(z_std)
-        rows = [matvec(mat, z_mont) for mat in (pk.mat_a, pk.mat_b, pk.mat_c)]
-        zeros = torch.zeros((n - nc, 8), dtype=torch.int32, device=z_std.device)
+        fr = self.fr
+        z_mont = to_mont(z_std, fr)
+        rows = [matvec(mat, z_mont, fr) for mat in (pk.mat_a, pk.mat_b, pk.mat_c)]
+        zeros = torch.zeros((n - nc, fr.limbs), dtype=torch.int32, device=z_std.device)
         a = torch.cat([rows[0], z_mont[:ni], zeros[ni:]])
         b = torch.cat([rows[1], zeros])
         c = torch.cat([rows[2], zeros])
@@ -229,7 +246,7 @@ class Groth16:
 
     def h_coefficients(self, pk: ProvingKey, a, b, c) -> torch.Tensor:
         """Stage 3: -> h, canonical standard form, bit-reversed order."""
-        return from_mont(self.ntt_plan(pk.domain_size).h_from_evals(a, b, c))
+        return from_mont(self.ntt_plan(pk.domain_size).h_from_evals(a, b, c), self.fr)
 
     def msm_sums(self, pk: ProvingKey, z_std: torch.Tensor, h_std: torch.Tensor, tick):
         """Stages 4-5: the five MSMs -> affine host points."""
@@ -258,10 +275,8 @@ class Groth16:
         m = pk.num_instance + pk.num_witness
         if len(z) != m:
             raise ValueError(f"assignment has {len(z)} values, the key {m}")
-        if m < PLANE_MIN_VARIABLES:
-            raise ValueError(
-                f"m = {m} < {PLANE_MIN_VARIABLES}: the small-circuit path is not ported"
-            )
+        if pk.vk.curve is not self.curve:
+            raise ValueError(f"a {pk.vk.curve.name} key for a {self.curve.name} prover")
         stage_ms = {}
         t = [time.perf_counter()]
         on_cuda = self.device.type == "cuda"
@@ -273,7 +288,7 @@ class Groth16:
             stage_ms[label] = (now - t[0]) * 1e3
             t[0] = now
 
-        z_std = FR.tensor(z, self.device, mont=False)
+        z_std = self.fr.tensor(z, self.device, mont=False)
         tick("upload")
         a, b, c = self.witness_evals(pk, z_std)
         tick("matvec")

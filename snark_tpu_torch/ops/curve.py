@@ -1,18 +1,19 @@
 """Curve kernels K1 (`bucket_madd_rows`), K2 (`masked_add`, and
 `point_add`: K2 with no mask) and K5 (`point_double`), their plain PyTorch
 versions, and the codecs between host points, the reference's u8 row
-tables and the port's projective limb tensors.
+tables and the port's projective limb tensors, for BN254 and BLS12-381
+(every function takes the curve, BN254 by default).
 
-A batch of points is an int32 tensor (lanes, 3, K, 8): projective X, Y, Z,
-each K base-field elements (K = 1 for G1 over Fq, 2 for G2 over Fq2) of 8
-u32 limbs in Montgomery form, R = 2^256 (`fields/limbs.py`). The identity
-is (0, 1, 0).
+A batch of points is an int32 tensor (lanes, 3, K, L): projective X, Y, Z,
+each K base-field elements (K = 1 for G1 over Fq, 2 for G2 over Fq2) of L
+u32 limbs in Montgomery form, R = 2^(32·L) (`fields/limbs.py`): L = 8 for
+BN254, 12 for BLS12-381. The identity is (0, 1, 0).
 
 The reference's tables (`ProvingKey.*_tbl`) are u8 rows of width
-2·K·34 + 1: X digits ‖ Y digits ‖ identity flag, each component the 34
-little-endian bytes of x·2^272 mod q ("wide" Montgomery, canonical). K1
-reads them as they are; `rows_to_points` and `pack_rows_u8` convert on
-the host.
+2·K·D + 1: X digits ‖ Y digits ‖ identity flag, each component the D
+little-endian bytes of x·2^(8·D) mod q ("wide" Montgomery, canonical),
+D = 34 for BN254 and 50 for BLS12-381. K1 reads them as they are;
+`rows_to_points` and `pack_rows_u8` convert on the host.
 """
 
 from __future__ import annotations
@@ -21,17 +22,37 @@ import numpy as np
 import torch
 
 from .. import _native
-from ..fields.limbs import FQ, add_words, div_r16_words, from_words, mont_mul_words, sub_words
-from ..fields.params import BN254
+from ..fields.limbs import (
+    add_words,
+    div_r16_words,
+    fields_of,
+    from_words,
+    mont_mul_words,
+    sub_words,
+)
+from ..fields.params import BN254, CurveParams
 from ..fields.towers import Fq2 as HostFq2
 
-ROW_DIGITS = 34  # base-256 digits per component in the reference's rows
-R_WIDE = 1 << (8 * ROW_DIGITS)  # the rows' Montgomery radix, 2^272
 GROUPS = {"g1": 1, "g2": 2}  # group name -> K (base-field components)
 
 
-def row_bytes(group: str) -> int:
-    return 2 * GROUPS[group] * ROW_DIGITS + 1
+def row_digits(curve: CurveParams = BN254) -> int:
+    """Base-256 digits per component in the reference's rows: 2·L + 2 for
+    Fq of L 16-bit limbs (its R8), 34 for BN254 and 50 for BLS12-381."""
+    return 2 * curve.fq.num_limbs + 2
+
+
+ROW_DIGITS = row_digits(BN254)  # BN254's, which the affine kernels read
+R_WIDE = 1 << (8 * ROW_DIGITS)  # the BN254 rows' Montgomery radix, 2^272
+
+
+def row_bytes(group: str, curve: CurveParams = BN254) -> int:
+    return 2 * GROUPS[group] * row_digits(curve) + 1
+
+
+def limbs_of(curve: CurveParams = BN254) -> int:
+    """u32 limbs of one Fq element."""
+    return fields_of(curve)[1].limbs
 
 
 # ---------------------------------------------------------------------------
@@ -43,31 +64,34 @@ def _components(pt, idx: int, K: int) -> list[int]:
     return [pt[idx]] if K == 1 else list(pt[idx])
 
 
-def pack_rows_u8(points, group: str = "g1") -> np.ndarray:
-    """Host affine points (None = identity) -> (N, 2·K·34+1) uint8 rows in
+def pack_rows_u8(points, group: str = "g1", curve: CurveParams = BN254) -> np.ndarray:
+    """Host affine points (None = identity) -> (N, 2·K·D+1) uint8 rows in
     the reference's layout (byte-identical to its `pack_rows_u8_host`)."""
     K = GROUPS[group]
-    q = FQ.p
-    one_wide = R_WIDE % q
-    out = np.zeros((len(points), row_bytes(group)), np.uint8)
+    q = curve.fq.modulus
+    D = row_digits(curve)
+    r_wide = 1 << (8 * D)
+    one_wide = r_wide % q
+    out = np.zeros((len(points), row_bytes(group, curve)), np.uint8)
     for i, pt in enumerate(points):
         if pt is None:
             vals = [0] * K + [one_wide] + [0] * (K - 1)
             flag = 0
         else:
-            vals = [v * R_WIDE % q for v in _components(pt, 0, K) + _components(pt, 1, K)]
+            vals = [v * r_wide % q for v in _components(pt, 0, K) + _components(pt, 1, K)]
             flag = 1
-        buf = b"".join(v.to_bytes(ROW_DIGITS, "little") for v in vals)
+        buf = b"".join(v.to_bytes(D, "little") for v in vals)
         out[i, :-1] = np.frombuffer(buf, np.uint8)
         out[i, -1] = flag
     return out
 
 
-def rows_to_points(rows: np.ndarray, group: str = "g1") -> list:
-    """(N, 2·K·34+1) uint8 rows -> host affine points (None = identity)."""
+def rows_to_points(rows: np.ndarray, group: str = "g1", curve: CurveParams = BN254) -> list:
+    """(N, 2·K·D+1) uint8 rows -> host affine points (None = identity)."""
     K = GROUPS[group]
-    q = FQ.p
-    r_inv = pow(R_WIDE, -1, q)
+    q = curve.fq.modulus
+    D = row_digits(curve)
+    r_inv = pow(1 << (8 * D), -1, q)
     rows = np.asarray(rows, np.uint8)
     out = []
     for row in rows:
@@ -76,7 +100,7 @@ def rows_to_points(rows: np.ndarray, group: str = "g1") -> list:
             continue
         raw = row[:-1].tobytes()
         vals = [
-            int.from_bytes(raw[ROW_DIGITS * c : ROW_DIGITS * (c + 1)], "little")
+            int.from_bytes(raw[D * c : D * (c + 1)], "little")
             * r_inv
             % q
             for c in range(2 * K)
@@ -85,10 +109,13 @@ def rows_to_points(rows: np.ndarray, group: str = "g1") -> list:
     return out
 
 
-def points_to_limbs(points, group: str = "g1", device="cpu") -> torch.Tensor:
-    """Host affine points (None = identity) -> (N, 3, K, 8) projective
+def points_to_limbs(
+    points, group: str = "g1", device="cpu", curve: CurveParams = BN254
+) -> torch.Tensor:
+    """Host affine points (None = identity) -> (N, 3, K, L) projective
     Montgomery limbs (Z = 1, identity (0, 1, 0))."""
     K = GROUPS[group]
+    fq = fields_of(curve)[1]
     vals = []
     for pt in points:
         if pt is None:
@@ -96,14 +123,15 @@ def points_to_limbs(points, group: str = "g1", device="cpu") -> torch.Tensor:
         else:
             coords = _components(pt, 0, K) + _components(pt, 1, K) + [1] + [0] * (K - 1)
         vals.extend(coords)
-    return FQ.tensor(vals, device).reshape(len(points), 3, K, 8)
+    return fq.tensor(vals, device).reshape(len(points), 3, K, fq.limbs)
 
 
-def limbs_to_points(t: torch.Tensor, group: str = "g1") -> list:
-    """(N, 3, K, 8) projective Montgomery limbs -> host affine points."""
+def limbs_to_points(t: torch.Tensor, group: str = "g1", curve: CurveParams = BN254) -> list:
+    """(N, 3, K, L) projective Montgomery limbs -> host affine points."""
     K = GROUPS[group]
-    q = FQ.p
-    vals = FQ.decode(t.reshape(-1, 8))
+    fq = fields_of(curve)[1]
+    q = fq.p
+    vals = fq.decode(t.reshape(-1, fq.limbs))
     out = []
     if K == 1:
         for i in range(0, len(vals), 3):
@@ -125,12 +153,13 @@ def limbs_to_points(t: torch.Tensor, group: str = "g1") -> list:
     return out
 
 
-def identity(lanes: int, group: str, device) -> torch.Tensor:
-    """(lanes, 3, K, 8) identity points."""
+def identity(lanes: int, group: str, device, curve: CurveParams = BN254) -> torch.Tensor:
+    """(lanes, 3, K, L) identity points."""
     K = GROUPS[group]
-    one = torch.zeros((3, K, 8), dtype=torch.int32, device=device)
-    one[1, 0] = FQ.const(1, device)
-    return one.expand(lanes, 3, K, 8).contiguous()
+    fq = fields_of(curve)[1]
+    one = torch.zeros((3, K, fq.limbs), dtype=torch.int32, device=device)
+    one[1, 0] = fq.const(1, device)
+    return one.expand(lanes, 3, K, fq.limbs).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -139,36 +168,38 @@ def identity(lanes: int, group: str, device) -> torch.Tensor:
 
 
 class _PlainCurve:
-    """RCB15 complete formulas (a = 0) on (N, K, 8) int64 word elements,
+    """RCB15 complete formulas (a = 0) on (N, K, L) int64 word elements,
     with the independent Montgomery products of each phase batched into
     one call."""
 
-    def __init__(self, group: str, device):
+    def __init__(self, group: str, device, curve: CurveParams = BN254):
         self.K = GROUPS[group]
-        q = FQ.p
-        b = [BN254.b] if self.K == 1 else list(BN254.b2)
-        b3 = FQ.tensor([3 * v % q for v in b], device).to(torch.int64) & 0xFFFFFFFF
-        self.b3 = b3.reshape(1, self.K, 8)
+        self.curve = curve
+        fq = self.fq = fields_of(curve)[1]
+        b = [curve.b] if self.K == 1 else list(curve.b2)
+        b3 = fq.tensor([3 * v % fq.p for v in b], device).to(torch.int64) & 0xFFFFFFFF
+        self.b3 = b3.reshape(1, self.K, fq.limbs)
 
     def add(self, a, b):
-        return add_words(a, b, FQ)
+        return add_words(a, b, self.fq)
 
     def sub(self, a, b):
-        return sub_words(a, b, FQ)
+        return sub_words(a, b, self.fq)
 
     def mul_many(self, pairs):
         pairs = [torch.broadcast_tensors(a, b) for a, b in pairs]
         A = torch.cat([a for a, _ in pairs])
         B = torch.cat([b for _, b in pairs])
+        fq = self.fq
         if self.K == 1:
-            out = mont_mul_words(A, B, FQ)
+            out = mont_mul_words(A, B, fq)
         else:
             a0, a1, b0, b1 = A[:, 0], A[:, 1], B[:, 0], B[:, 1]
             pr = mont_mul_words(
-                torch.stack([a0, a1, a0, a1]), torch.stack([b0, b1, b1, b0]), FQ
+                torch.stack([a0, a1, a0, a1]), torch.stack([b0, b1, b1, b0]), fq
             )
             out = torch.stack(
-                [sub_words(pr[0], pr[1], FQ), add_words(pr[2], pr[3], FQ)], dim=1
+                [sub_words(pr[0], pr[1], fq), add_words(pr[2], pr[3], fq)], dim=1
             )
         return torch.split(out, [a.shape[0] for a, _ in pairs])
 
@@ -186,7 +217,7 @@ class _PlainCurve:
         )
 
     def madd(self, P, qx, qy):
-        """Alg 8: P (N, 3, K, 8) + affine (qx, qy) (N, K, 8)."""
+        """Alg 8: P (N, 3, K, L) + affine (qx, qy) (N, K, L)."""
         X1, Y1, Z1 = P[:, 0], P[:, 1], P[:, 2]
         t0, t1, m4, yz, xz = self.mul_many(
             [(X1, qx), (Y1, qy), (self.add(X1, Y1), self.add(qx, qy)), (qy, Z1), (qx, Z1)]
@@ -195,7 +226,7 @@ class _PlainCurve:
         return self._tail(t0, t1, t3, self.add(yz, Y1), self.add(xz, X1), Z1)
 
     def padd(self, P, Q):
-        """Alg 7: P + Q, both (N, 3, K, 8)."""
+        """Alg 7: P + Q, both (N, 3, K, L)."""
         X1, Y1, Z1 = P[:, 0], P[:, 1], P[:, 2]
         X2, Y2, Z2 = Q[:, 0], Q[:, 1], Q[:, 2]
         t0, t1, t2, m4, m5, m6 = self.mul_many(
@@ -214,7 +245,7 @@ class _PlainCurve:
         return self._tail(t0, t1, t3, t4, y3p, t2)
 
     def pdbl(self, P):
-        """Alg 9: 2P, P (N, 3, K, 8)."""
+        """Alg 9: 2P, P (N, 3, K, L)."""
         X, Y, Z = P[:, 0], P[:, 1], P[:, 2]
         t0, t1, zz, xy = self.mul_many([(Y, Y), (Y, Z), (Z, Z), (X, Y)])
         (t2,) = self.mul_many([(self.b3, zz)])
@@ -228,12 +259,16 @@ class _PlainCurve:
         return torch.stack([self.add(xyn, xyn), self.add(x3, m), z3], dim=1)
 
     def decode_rows(self, rows: torch.Tensor):
-        """(M, row_bytes) uint8 -> (qx, qy) (M, K, 8) words at R = 2^256."""
-        K = self.K
-        b = rows[:, : 2 * K * ROW_DIGITS].reshape(-1, 2 * K, ROW_DIGITS)[:, :, :32]
-        b = b.to(torch.int64).reshape(-1, 2 * K, 8, 4)
-        w = b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)  # (M, 2K, 8)
-        w = div_r16_words(w, FQ)  # x·2^272 -> x·2^256 (K1 multiplies by 2^240)
+        """(M, row_bytes) uint8 -> (qx, qy) (M, K, L) words at R = 2^(32·L).
+        The rows' radix is 2^16 above the limbs' on both curves (2^272 over
+        2^256, 2^400 over 2^384), so one 16-bit reduction step moves the
+        value (K1 multiplies by 2^(32·L − 16) instead)."""
+        K, L, D = self.K, self.fq.limbs, row_digits(self.curve)
+        assert 8 * D - 32 * L == 16
+        b = rows[:, : 2 * K * D].reshape(-1, 2 * K, D)[:, :, : 4 * L]
+        b = b.to(torch.int64).reshape(-1, 2 * K, L, 4)
+        w = b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)  # (M, 2K, L)
+        w = div_r16_words(w, self.fq)
         return w[:, :K], w[:, K:]
 
 
@@ -242,12 +277,13 @@ def _words(t: torch.Tensor) -> torch.Tensor:
 
 
 def bucket_madd_rows_plain(
-    acc, table, perm, lane_base, start, length, i0: int, k_steps: int, group: str
+    acc, table, perm, lane_base, start, length, i0: int, k_steps: int, group: str,
+    curve: CurveParams = BN254,
 ) -> torch.Tensor:
     """Plain version of K1: the same function, on masked lane subsets."""
-    pc = _PlainCurve(group, acc.device)
+    pc = _PlainCurve(group, acc.device, curve)
     out = _words(acc).clone()
-    flag_at = row_bytes(group) - 1
+    flag_at = row_bytes(group, curve) - 1
     base = lane_base.to(torch.int64) + start.to(torch.int64)
     length = length.to(torch.int64)
     perm = perm.to(torch.int64) & 0xFFFFFFFF
@@ -264,14 +300,14 @@ def bucket_madd_rows_plain(
         neg = (pay >> 31).bool()
         if bool(neg.any()):
             zero = torch.zeros_like(qy[neg])
-            qy[neg] = sub_words(zero, qy[neg], FQ)
+            qy[neg] = sub_words(zero, qy[neg], pc.fq)
         out[lanes] = pc.madd(out[lanes], qx, qy)
     return from_words(out)
 
 
-def masked_add_plain(p, q, mask, group: str) -> torch.Tensor:
+def masked_add_plain(p, q, mask, group: str, curve: CurveParams = BN254) -> torch.Tensor:
     """Plain version of K2."""
-    pc = _PlainCurve(group, p.device)
+    pc = _PlainCurve(group, p.device, curve)
     out = _words(p).clone()
     lanes = torch.nonzero(mask).flatten()
     if lanes.numel():
@@ -279,14 +315,14 @@ def masked_add_plain(p, q, mask, group: str) -> torch.Tensor:
     return from_words(out)
 
 
-def point_add_plain(p, q, group: str) -> torch.Tensor:
+def point_add_plain(p, q, group: str, curve: CurveParams = BN254) -> torch.Tensor:
     """Plain version of K2 without a mask."""
-    return from_words(_PlainCurve(group, p.device).padd(_words(p), _words(q)))
+    return from_words(_PlainCurve(group, p.device, curve).padd(_words(p), _words(q)))
 
 
-def point_double_plain(p, group: str) -> torch.Tensor:
+def point_double_plain(p, group: str, curve: CurveParams = BN254) -> torch.Tensor:
     """Plain version of K5."""
-    return from_words(_PlainCurve(group, p.device).pdbl(_words(p)))
+    return from_words(_PlainCurve(group, p.device, curve).pdbl(_words(p)))
 
 
 # ---------------------------------------------------------------------------
@@ -294,16 +330,23 @@ def point_double_plain(p, group: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _check_points(t: torch.Tensor, group: str, name: str) -> int:
-    K = GROUPS[group]
-    if t.dtype != torch.int32 or t.dim() != 4 or tuple(t.shape[1:]) != (3, K, 8):
-        raise ValueError(f"{name}: want int32 (lanes, 3, {K}, 8), got {t.dtype} {tuple(t.shape)}")
+def _check_points(t: torch.Tensor, group: str, name: str, curve: CurveParams) -> int:
+    K, L = GROUPS[group], limbs_of(curve)
+    if t.dtype != torch.int32 or t.dim() != 4 or tuple(t.shape[1:]) != (3, K, L):
+        raise ValueError(f"{name}: want int32 (lanes, 3, {K}, {L}), got {t.dtype} {tuple(t.shape)}")
     return t.shape[0]
 
 
 def _check_vec(t: torch.Tensor, n: int, name: str, dtype=torch.int32) -> None:
     if t.dtype != dtype or t.dim() != 1 or (n >= 0 and t.shape[0] != n):
         raise ValueError(f"{name}: want {dtype} ({n},), got {t.dtype} {tuple(t.shape)}")
+
+
+def _launch(kernel: str, counter: str, curve: CurveParams, group: str, *args) -> None:
+    _native.launch(
+        kernel, _native.counter_name(counter, curve.name, group),
+        _native.CURVE_CODES[curve.name], GROUPS[group], *args,
+    )
 
 
 def bucket_madd_rows(
@@ -316,83 +359,81 @@ def bucket_madd_rows(
     i0: int,
     k_steps: int,
     group: str = "g1",
+    curve: CurveParams = BN254,
 ) -> torch.Tensor:
     """K1: for every lane l, add the rows perm[lane_base + start + i] for
     i in [i0, min(i0 + k_steps, length)) into acc[l] (mixed add; a payload
     with bit 31 set adds the negated point; identity rows are skipped).
     Returns the new accumulators."""
-    lanes = _check_points(acc, group, "acc")
-    if table.dtype != torch.uint8 or table.dim() != 2 or table.shape[1] != row_bytes(group):
-        raise ValueError(f"table: want uint8 (N, {row_bytes(group)}), got {table.dtype} {tuple(table.shape)}")
+    _native.require_ported("bucket_madd_rows", curve.name)
+    lanes = _check_points(acc, group, "acc", curve)
+    rb = row_bytes(group, curve)
+    if table.dtype != torch.uint8 or table.dim() != 2 or table.shape[1] != rb:
+        raise ValueError(f"table: want uint8 (N, {rb}), got {table.dtype} {tuple(table.shape)}")
     _check_vec(perm, -1, "perm")
     for name, t in (("lane_base", lane_base), ("start", start), ("length", length)):
         _check_vec(t, lanes, name)
     if acc.device.type == "cpu":
         return bucket_madd_rows_plain(
-            acc, table, perm, lane_base, start, length, i0, k_steps, group
+            acc, table, perm, lane_base, start, length, i0, k_steps, group, curve
         )
     _native.require_cuda(acc, table, perm, lane_base, start, length)
     out = torch.empty_like(acc)
-    _native.launch(
-        "bucket_madd_rows",
-        "bucket_madd_rows_" + group,
-        GROUPS[group],
-        acc.data_ptr(),
-        out.data_ptr(),
-        table.data_ptr(),
-        table.shape[1],
-        perm.data_ptr(),
-        lane_base.data_ptr(),
-        start.data_ptr(),
-        length.data_ptr(),
-        lanes,
-        int(i0),
-        int(k_steps),
+    _launch(
+        "bucket_madd_rows", "bucket_madd_rows", curve, group,
+        acc.data_ptr(), out.data_ptr(), table.data_ptr(), table.shape[1], perm.data_ptr(),
+        lane_base.data_ptr(), start.data_ptr(), length.data_ptr(), lanes, int(i0), int(k_steps),
     )
     return out
 
 
 def masked_add(
-    p: torch.Tensor, q: torch.Tensor, mask: torch.Tensor, group: str = "g1"
+    p: torch.Tensor, q: torch.Tensor, mask: torch.Tensor, group: str = "g1",
+    curve: CurveParams = BN254,
 ) -> torch.Tensor:
     """K2: mask ? p + q : p per lane (complete projective add)."""
-    lanes = _check_points(p, group, "p")
-    if _check_points(q, group, "q") != lanes:
+    _native.require_ported("masked_add", curve.name)
+    lanes = _check_points(p, group, "p", curve)
+    if _check_points(q, group, "q", curve) != lanes:
         raise ValueError("p and q differ in lanes")
     _check_vec(mask, lanes, "mask", torch.bool)
     if p.device.type == "cpu":
-        return masked_add_plain(p, q, mask, group)
+        return masked_add_plain(p, q, mask, group, curve)
     _native.require_cuda(p, q, mask)
     out = torch.empty_like(p)
-    _native.launch(
-        "masked_add", "masked_add_" + group, GROUPS[group], p.data_ptr(), q.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), lanes,
+    _launch(
+        "masked_add", "masked_add", curve, group,
+        p.data_ptr(), q.data_ptr(), mask.data_ptr(), out.data_ptr(), lanes,
     )
     return out
 
 
-def point_add(p: torch.Tensor, q: torch.Tensor, group: str = "g1") -> torch.Tensor:
+def point_add(
+    p: torch.Tensor, q: torch.Tensor, group: str = "g1", curve: CurveParams = BN254
+) -> torch.Tensor:
     """K2 with no mask: p + q per lane (complete projective add)."""
-    lanes = _check_points(p, group, "p")
-    if _check_points(q, group, "q") != lanes:
+    _native.require_ported("masked_add", curve.name)
+    lanes = _check_points(p, group, "p", curve)
+    if _check_points(q, group, "q", curve) != lanes:
         raise ValueError("p and q differ in lanes")
     if p.device.type == "cpu":
-        return point_add_plain(p, q, group)
+        return point_add_plain(p, q, group, curve)
     _native.require_cuda(p, q)
     out = torch.empty_like(p)
-    _native.launch(
-        "masked_add", "point_add_" + group, GROUPS[group], p.data_ptr(), q.data_ptr(), None,
-        out.data_ptr(), lanes,
+    _launch(
+        "masked_add", "point_add", curve, group,
+        p.data_ptr(), q.data_ptr(), None, out.data_ptr(), lanes,
     )
     return out
 
 
-def point_double(p: torch.Tensor, group: str = "g1") -> torch.Tensor:
+def point_double(p: torch.Tensor, group: str = "g1", curve: CurveParams = BN254) -> torch.Tensor:
     """K5: 2p per lane (complete projective double)."""
-    lanes = _check_points(p, group, "p")
+    _native.require_ported("point_double", curve.name)
+    lanes = _check_points(p, group, "p", curve)
     if p.device.type == "cpu":
-        return point_double_plain(p, group)
+        return point_double_plain(p, group, curve)
     _native.require_cuda(p)
     out = torch.empty_like(p)
-    _native.launch("point_double", "point_double_" + group, GROUPS[group], p.data_ptr(), out.data_ptr(), lanes)
+    _launch("point_double", "point_double", curve, group, p.data_ptr(), out.data_ptr(), lanes)
     return out

@@ -11,8 +11,6 @@ import math
 
 import torch
 
-from ..fields.limbs import LIMBS
-
 
 def pick_window_plane(n: int) -> int:
     """~log2(n) − 6 clamped to [8, 16], capped so that the W·2^c bucket
@@ -27,8 +25,22 @@ def pick_window_plane(n: int) -> int:
     return c
 
 
+PLANE_MIN_POINTS = 2048  # where the reference's prover starts to take its plane MSM
+
+
+def pick_window_small(n: int) -> int:
+    """The window of the reference's legacy MSM, which its prover takes below
+    2048 variables: ~log2(n) − 6 clamped to [4, 16], and 4 up to 32 points."""
+    return 4 if n <= 32 else int(max(4, min(16, math.floor(math.log2(n)) - 6)))
+
+
 def pick_window_plane_signed(n: int) -> int:
-    """Signed digits: one more window bit at the same bucket count."""
+    """Signed digits: one more window bit at the same bucket count. Below
+    2048 points the port's plane MSM takes the legacy path's window, so that
+    its W·2^(c−1) bucket lanes stay near n (the plane pick, c = 9, gives
+    7,424 lanes for the 26 points of a 12-constraint circuit)."""
+    if n < PLANE_MIN_POINTS:
+        return pick_window_small(n)
     return min(16, pick_window_plane(n) + 1)
 
 
@@ -38,13 +50,13 @@ def num_windows_signed(c: int, num_bits: int) -> int:
     return w_u + 1 if b_top >= c else w_u
 
 
-def _check_std(std: torch.Tensor) -> None:
-    if std.dtype != torch.int32 or std.dim() != 2 or std.shape[1] != LIMBS:
-        raise ValueError(f"want int32 (N, 8), got {std.dtype} {tuple(std.shape)}")
+def _check_std(std: torch.Tensor, num_bits: int) -> None:
+    if std.dtype != torch.int32 or std.dim() != 2 or 32 * std.shape[1] < num_bits:
+        raise ValueError(f"want int32 (N, L) of {num_bits} bits, got {std.dtype} {tuple(std.shape)}")
 
 
 def _windows(std: torch.Tensor, c: int, count: int) -> list[torch.Tensor]:
-    """(N, 8) int32 limbs -> `count` int64 columns of c-bit windows."""
+    """(N, L) int32 limbs -> `count` int64 columns of c-bit windows."""
     w = std.to(torch.int64) & 0xFFFFFFFF
     w = torch.cat([w, torch.zeros_like(w[:, :1])], dim=1)  # room for a straddle
     mask = (1 << c) - 1
@@ -59,19 +71,20 @@ def _windows(std: torch.Tensor, c: int, count: int) -> list[torch.Tensor]:
 
 
 def unsigned_digits(std: torch.Tensor, c: int, num_bits: int) -> torch.Tensor:
-    """(N, 8) int32 standard-form limbs (canonical) -> (N, W) int32 window
+    """(N, L) int32 standard-form limbs (canonical) -> (N, W) int32 window
     digits in [0, 2^c), W = ceil(num_bits / c); equal to the reference's
     `scalars_to_digits`."""
-    _check_std(std)
+    _check_std(std, num_bits)
     return torch.stack(_windows(std, c, -(-num_bits // c)), dim=1).to(torch.int32)
 
 
 def signed_digits(std: torch.Tensor, c: int, num_bits: int) -> torch.Tensor:
-    """(N, 8) int32 standard-form limbs (canonical) -> (N, W) int32
+    """(N, L) int32 standard-form limbs (canonical) -> (N, W) int32
     balanced window digits in (−2^(c−1), 2^(c−1)], the last window
     non-negative; bit-identical to the reference's
-    `scalars_to_digits_signed`."""
-    _check_std(std)
+    `scalars_to_digits_signed` (num_bits 254 for BN254 Fr, 255 for
+    BLS12-381 Fr)."""
+    _check_std(std, num_bits)
     w_u = -(-num_bits // c)
     W = num_windows_signed(c, num_bits)
     cols = _windows(std, c, w_u)

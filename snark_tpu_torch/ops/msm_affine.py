@@ -20,6 +20,9 @@ coordinates. The port's values are always reduced, so the rows K8 writes are
 canonical without the reference's explicit canonicalisation; the CPU tests
 hold them byte for byte against the reference's.
 
+K6-K8 exist for BN254 only: `PlaneMsm` refuses `affine=True` on
+BLS12-381, and the library refuses any other curve code.
+
 Layouts: rows (2M, row_bytes) uint8 in (`ops/curve.py`); sign bytes (2M,)
 uint8 at level 0; den and dinv (M, K, 8) int32 limbs at R = 2^256; classes
 (M,) uint8: ADD 0, DOUBLE 1, DEAD 2, COPY_L 3, COPY_R 4.
@@ -36,6 +39,7 @@ from ..fields.limbs import FQ, from_words, mont_mul_words, to_words
 from .curve import GROUPS, ROW_DIGITS, R_WIDE, _PlainCurve, row_bytes
 
 ADD, DOUBLE, DEAD, COPY_L, COPY_R = range(5)
+_BN254 = _native.CURVE_CODES["bn254"]  # K6-K8 have BN254 instances only
 PLAIN_CHUNK = 1 << 20  # pairs per step of the plain versions (bounds memory)
 
 
@@ -204,7 +208,7 @@ def affine_phase1(rows: torch.Tensor, sgn, group: str = "g1"):
     den = torch.empty((M, GROUPS[group], 8), dtype=torch.int32, device=rows.device)
     cls = torch.empty((M,), dtype=torch.uint8, device=rows.device)
     _native.launch(
-        "affine_phase1", "affine_phase1_" + group, GROUPS[group], rows.data_ptr(),
+        "affine_phase1", "affine_phase1_" + group, _BN254, GROUPS[group], rows.data_ptr(),
         rows.shape[1], _ptr(sgn), den.data_ptr(), cls.data_ptr(), M,
     )
     return den, cls
@@ -221,7 +225,7 @@ def affine_phase3(rows: torch.Tensor, sgn, dinv: torch.Tensor, cls: torch.Tensor
     _native.require_cuda(rows, dinv, cls, *([] if sgn is None else [sgn]))
     out = torch.empty((M, rows.shape[1]), dtype=torch.uint8, device=rows.device)
     _native.launch(
-        "affine_phase3", "affine_phase3_" + group, GROUPS[group], rows.data_ptr(),
+        "affine_phase3", "affine_phase3_" + group, _BN254, GROUPS[group], rows.data_ptr(),
         rows.shape[1], _ptr(sgn), dinv.data_ptr(), cls.data_ptr(), out.data_ptr(), M,
     )
     return out
@@ -242,7 +246,7 @@ def affine_tree_mul(a: torch.Tensor, b: torch.Tensor, group: str = "g1", out=Non
     out = torch.empty_like(a) if out is None else out
     _native.require_cuda(a, b, out)
     _native.launch(
-        "affine_tree_mul", "affine_tree_mul_" + group, GROUPS[group], 0, a.data_ptr(),
+        "affine_tree_mul", "affine_tree_mul_" + group, _BN254, GROUPS[group], 0, a.data_ptr(),
         b.data_ptr(), out.data_ptr(), n,
     )
     return out
@@ -256,7 +260,7 @@ def affine_inverse(a: torch.Tensor, group: str = "g1") -> torch.Tensor:
     _native.require_cuda(a)
     out = torch.empty_like(a)
     _native.launch(
-        "affine_tree_mul", "affine_tree_mul_" + group, GROUPS[group], 1, a.data_ptr(),
+        "affine_tree_mul", "affine_tree_mul_" + group, _BN254, GROUPS[group], 1, a.data_ptr(),
         None, out.data_ptr(), n,
     )
     return out

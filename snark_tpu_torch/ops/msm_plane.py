@@ -29,10 +29,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..fields.params import BN254, CurveParams
 from .curve import (
     GROUPS,
     bucket_madd_rows,
     identity,
+    limbs_of,
     limbs_to_points,
     masked_add,
     point_add,
@@ -45,9 +47,10 @@ AFFINE_MIN_MEAN = 8  # the affine tree runs when n >= 8 · 2^cb (the reference's
 
 
 class PlaneMsm:
-    """Bucket MSM for one (c, num_bits, group, digit mode). With
+    """Bucket MSM for one (c, num_bits, group, digit mode, curve). With
     `affine=True` the buckets are accumulated by the batch-affine tree
-    wherever the mean bucket holds at least 8 elements, else by the scan."""
+    wherever the mean bucket holds at least 8 elements, else by the scan
+    (BN254 only: K6-K8 have no BLS12-381 instances yet)."""
 
     def __init__(
         self,
@@ -56,10 +59,18 @@ class PlaneMsm:
         group: str = "g1",
         signed: bool = True,
         affine: bool = False,
+        curve: CurveParams = BN254,
     ):
+        if affine and curve is not BN254:
+            raise NotImplementedError(
+                f"the batch-affine MSM needs K6-K8 (affine_phase1, affine_tree_mul,"
+                f" affine_phase3), which have no {curve.name} instances yet"
+            )
         self.c = c
         self.group = group
+        self.curve = curve
         self.K = GROUPS[group]
+        self.L = limbs_of(curve)
         self.num_bits = num_bits
         self.signed = signed
         self.affine = affine
@@ -169,8 +180,8 @@ class PlaneMsm:
         lane_base = i32(lane_base)
         eff_len, spill = self.spill_plan(length, mean)
         acc = bucket_madd_rows(
-            identity(lanes, self.group, dev), table, perm, lane_base, i32(start),
-            i32(eff_len), 0, int(eff_len.max()), self.group,
+            identity(lanes, self.group, dev, self.curve), table, perm, lane_base, i32(start),
+            i32(eff_len), 0, int(eff_len.max()), self.group, self.curve,
         )
         if spill is None:
             return acc
@@ -190,8 +201,9 @@ class PlaneMsm:
         bidx = top_idx[b_of]
         sp_len = (ov[b_of] - o_l).clamp(0, chunk)
         sacc = bucket_madd_rows(
-            identity(S, self.group, dev), table, perm, lane_base[bidx].contiguous(),
+            identity(S, self.group, dev, self.curve), table, perm, lane_base[bidx].contiguous(),
             i32(start[bidx] + T1 + o_l), i32(sp_len), 0, int(sp_len.max()), self.group,
+            self.curve,
         )
         # segmented suffix fold: each bucket's chunk partials into its
         # first spill lane
@@ -199,18 +211,20 @@ class PlaneMsm:
         st, max_lpb = 1, int(lanes_b.max())
         while st < max_lpb:
             same = (b_of == torch.roll(b_of, -st)) & (lane_ids + st < S)
-            sacc = masked_add(sacc, torch.roll(sacc, -st, dims=0), same, self.group)
+            sacc = masked_add(sacc, torch.roll(sacc, -st, dims=0), same, self.group, self.curve)
             st *= 2
         first_lane = cum_pad[:S2] // chunk
         inv = torch.full((lanes,), -1, dtype=torch.int64, device=dev)
         inv[top_idx] = torch.where(spilled, first_lane, -1)
-        return masked_add(acc, sacc[inv.clamp(min=0)].contiguous(), inv >= 0, self.group)
+        return masked_add(
+            acc, sacc[inv.clamp(min=0)].contiguous(), inv >= 0, self.group, self.curve
+        )
 
     def uses_affine(self, n: int) -> bool:
         return self.affine and n >= AFFINE_MIN_MEAN * self.nb
 
     def _accumulate(self, table, digits_t):
-        """Phases 1-3 -> (lanes, 3, K, 8) bucket accumulators."""
+        """Phases 1-3 -> (lanes, 3, K, L) bucket accumulators."""
         W, n = digits_t.shape
         perm, start, length = self._buckets(digits_t)
         mean = max(1, n // self.nb)
@@ -225,12 +239,12 @@ class PlaneMsm:
 
     # -- phase 4: replica collapse and the double suffix scan ------------------
     def _fold(self, acc):
-        W, nb, K = self.W, self.nb, self.K
+        W, nb, K, L = self.W, self.nb, self.K, self.L
         dev = acc.device
 
         def step(a, stride, mask):
-            rolled = torch.roll(a.view(W, nb, 3, K, 8), -stride, dims=1)
-            return masked_add(a, rolled.reshape(a.shape).contiguous(), mask, self.group)
+            rolled = torch.roll(a.view(W, nb, 3, K, L), -stride, dims=1)
+            return masked_add(a, rolled.reshape(a.shape).contiguous(), mask, self.group, self.curve)
 
         for j in range(self.max_r):
             acc = step(acc, 1 << j, torch.as_tensor(self.collapse[j], device=dev))
@@ -242,17 +256,17 @@ class PlaneMsm:
         for k in range(self.cb):
             acc = step(acc, 1 << k, scan[k])
         if not self.signed:
-            acc = acc.view(W, nb, 3, K, 8).clone()
-            acc[:, 0] = identity(W, self.group, dev)
-            acc = acc.view(W * nb, 3, K, 8)
+            acc = acc.view(W, nb, 3, K, L).clone()
+            acc[:, 0] = identity(W, self.group, dev, self.curve)
+            acc = acc.view(W * nb, 3, K, L)
         for k in range(self.cb):
             acc = step(acc, 1 << k, scan[k])
-        return acc.view(W, nb, 3, K, 8)[:, 0].contiguous()
+        return acc.view(W, nb, 3, K, L)[:, 0].contiguous()
 
     # -- public API --------------------------------------------------------------
     def window_sums(self, table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
         """table (N, row_bytes) uint8 rows; digits (N, W) int32 (signed or
-        unsigned, as the plan) -> (W, 3, K, 8) window totals."""
+        unsigned, as the plan) -> (W, 3, K, L) window totals."""
         n, W = digits.shape
         if W != self.W:
             raise ValueError(f"digits have {W} windows, plan has {self.W}")
@@ -262,17 +276,17 @@ class PlaneMsm:
 
     def combine(self, sums: torch.Tensor) -> torch.Tensor:
         """Horner over the window totals on the device: c doublings (K5)
-        and one add (K2) per window, on one lane -> (3, K, 8) projective."""
-        acc = identity(1, self.group, sums.device)
+        and one add (K2) per window, on one lane -> (3, K, L) projective."""
+        acc = identity(1, self.group, sums.device, self.curve)
         for w in range(self.W - 1, -1, -1):
             for _ in range(self.c):
-                acc = point_double(acc, self.group)
-            acc = point_add(acc, sums[w : w + 1], self.group)
+                acc = point_double(acc, self.group, self.curve)
+            acc = point_add(acc, sums[w : w + 1], self.group, self.curve)
         return acc[0]
 
     def combine_host(self, sums: torch.Tensor, host_curve):
         """Horner over the window totals on the host -> affine point."""
-        affs = limbs_to_points(sums, self.group)
+        affs = limbs_to_points(sums, self.group, self.curve)
         acc = None
         for w in range(self.W - 1, -1, -1):
             for _ in range(self.c):
@@ -281,7 +295,7 @@ class PlaneMsm:
         return acc
 
     def msm(self, table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
-        """The whole MSM on the device -> (3, K, 8) projective point."""
+        """The whole MSM on the device -> (3, K, L) projective point."""
         return self.combine(self.window_sums(table, digits))
 
     def msm_host(self, table: torch.Tensor, digits: torch.Tensor, host_curve):

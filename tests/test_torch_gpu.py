@@ -15,8 +15,9 @@ import random
 import pytest
 import torch
 
-from snark_tpu_torch.fields.limbs import FQ, FR
-from snark_tpu_torch.fields.params import BN254
+from snark_tpu_torch import _native
+from snark_tpu_torch.fields.limbs import BLS_FR, FQ, FR
+from snark_tpu_torch.fields.params import BLS12_381, BN254
 from snark_tpu_torch.groth16 import Groth16, ProvingKey
 from snark_tpu_torch.models import MulChainCircuit
 from snark_tpu_torch.ops import curve as C
@@ -202,3 +203,94 @@ def test_prove_fixture(cuda):
     proof = g16.prove_from_assignment(pk, z, int(want["r"]), int(want["s"]))
     assert ser.serialize_proof(proof, BN254).hex() == want["proof_bytes_hex"]
     assert g16.verify(pk.vk, want["public_input"], proof)
+
+
+# ---------------------------------------------------------------------------
+# BLS12-381 instances (K1, K2 over 12-limb Fq and Fq2; K3, K4 over its Fr)
+# ---------------------------------------------------------------------------
+
+BLS_HOSTS = {"g1": host_g1(BLS12_381), "g2": host_g2(BLS12_381)}
+BLS_R = BLS12_381.fr.modulus
+
+
+def test_bls_scalar_kernels_match_plain(cuda):
+    rng = random.Random(12)
+    n = 1 << 12
+    av, bv, cv = ([rng.randrange(BLS_R) for _ in range(n)] for _ in range(3))
+    a, b, c = (BLS_FR.tensor(v, cuda) for v in (av, bv, cv))
+    d = BLS_FR.const(12345, cuda)
+    for mode in ("mul", "add", "hadamard"):
+        assert torch.equal(N.field_ew(mode, a, b, c, d, BLS_FR),
+                           N.field_ew_plain(mode, a, b, c, d, BLS_FR))
+    gpu, cpu = N.NttPlan(n, cuda, BLS_FR), N.NttPlan(n, "cpu", BLS_FR)
+    got = gpu.h_from_evals(a, b, c)
+    assert torch.equal(got.cpu(), cpu.h_from_evals(a.cpu(), b.cpu(), c.cpu()))
+    for s in (0, 5, 11):
+        for dif in (False, True):
+            assert torch.equal(
+                N.ntt_stage(a, gpu.fwd_tw, s, n >> (s + 1), dif, BLS_FR),
+                N.ntt_stage_plain(a, gpu.fwd_tw, s, n >> (s + 1), dif, BLS_FR),
+            )
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_bls_curve_kernels_match_plain(cuda, group):
+    hc = BLS_HOSTS[group]
+    rng = random.Random(7)
+    pool = [hc.scalar_mul(hc.generator, rng.randrange(1, BLS_R)) for _ in range(15)] + [None]
+    P = [pool[i % 16] for i in range(256)]
+    Q = [pool[(5 * i + 3) % 16] for i in range(256)]
+    Q[:3] = [P[0], hc.neg(P[1]), None]  # doubling, inverse, identity
+    p = C.points_to_limbs(P, group, cuda, BLS12_381)
+    q = C.points_to_limbs(Q, group, cuda, BLS12_381)
+    mask = torch.rand(256, device=cuda) < 0.7
+    got = C.masked_add(p, q, mask, group, BLS12_381)
+    assert torch.equal(got, C.masked_add_plain(p, q, mask, group, BLS12_381))
+    assert C.limbs_to_points(got, group, BLS12_381) == [
+        hc.add(a, b) if m else a for a, b, m in zip(P, Q, mask.tolist())
+    ]
+    table = torch.as_tensor(C.pack_rows_u8(Q, group, BLS12_381), device=cuda)
+    perm = torch.randint(0, 256, (2560,), device=cuda, dtype=torch.int32)
+    perm = torch.where(torch.rand(2560, device=cuda) < 0.4, perm | (-(1 << 31)), perm)
+    base = torch.zeros(256, dtype=torch.int32, device=cuda)
+    start = torch.arange(256, dtype=torch.int32, device=cuda) * 10
+    length = torch.randint(0, 11, (256,), dtype=torch.int32, device=cuda)
+    args = (p, table, perm.to(torch.int32), base, start, length, 0, 10, group, BLS12_381)
+    assert torch.equal(C.bucket_madd_rows(*args), C.bucket_madd_rows_plain(*args))
+    # the kernels without BLS12-381 instances refuse, on the card too
+    with pytest.raises(NotImplementedError):
+        C.point_double(p, group, BLS12_381)
+
+
+def test_bls_msm_matches_host(cuda):
+    """G1 and G2, a clustered witness-like scalar set (the spill path runs)."""
+    rng = random.Random(31)
+    c, n = 11, 1 << 14
+    scalars = [rng.randrange(1 << 44) if i % 2 else rng.randrange(BLS_R) for i in range(n)]
+    digits = signed_digits(BLS_FR.tensor(scalars, cuda, mont=False), c, BLS12_381.fr.num_bits)
+    agg = [0] * 16
+    for i, s in enumerate(scalars):
+        agg[i % 16] = (agg[i % 16] + s) % BLS_R
+    for group, hc in BLS_HOSTS.items():
+        pool = [hc.scalar_mul(hc.generator, rng.randrange(1, BLS_R)) for _ in range(16)]
+        table = torch.as_tensor(C.pack_rows_u8(pool * (n // 16), group, BLS12_381), device=cuda)
+        plan = PlaneMsm(c, BLS12_381.fr.num_bits, group, curve=BLS12_381)
+        assert plan.msm_host(table, digits, hc) == hc.msm(pool, agg)
+
+
+def test_bls_prove_small_fixture(cuda):
+    """The 12-constraint BLS12-381 fixture on the card: the JAX package's
+    proof, bit for bit, and it verifies; every BLS12-381 kernel launched."""
+    with open(os.path.join(VECTORS, "torch_proof_bls12_381_mulchain12.json")) as f:
+        want = json.load(f)
+    pk = ProvingKey.load(os.path.join(VECTORS, "torch_pk_bls12_381_mulchain12.npz"), device=cuda)
+    g16 = Groth16(BLS12_381, device=cuda)
+    z = MulChainCircuit(seed=7, n=12).assignment(BLS_R)
+    _native.reset_launches()
+    proof = g16.prove_from_assignment(pk, z, int(want["r"]), int(want["s"]))
+    assert ser.serialize_proof(proof, BLS12_381).hex() == want["proof_bytes_hex"]
+    assert g16.verify(pk.vk, want["public_input"], proof)
+    for k in ("bucket_madd_rows_bls12_381_g1", "bucket_madd_rows_bls12_381_g2",
+              "masked_add_bls12_381_g1", "masked_add_bls12_381_g2",
+              "ntt_stage_bls12_381", "field_ew_bls12_381"):
+        assert _native.LAUNCHES[k] > 0, k
