@@ -38,10 +38,11 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    oracle. Launch counts of this phase go into the kernel line for K5-K8
    and K2 without a mask.
 7. setup_bls, kernels_bls: the BN254 data is freed, the synthetic
-   BLS12-381 key of prove_full_bls is made, and the BLS12-381 instances of
-   K1-K4 (K1 and K2 in G1 and G2 over the 12-limb Fq, K3 and K4 over
-   BLS12-381 Fr) are held against their plain versions at the shapes of
-   that prove, as in phase 2.
+   BLS12-381 key of prove_full_bls and the BLS12-381 MSM bench's inputs
+   are made, and the BLS12-381 instances of K1-K4 (K1 and K2 in G1 and G2
+   over the 12-limb Fq, K3 and K4 over BLS12-381 Fr) are held against their
+   plain versions at the shapes of that prove, and those of K5, K2 without
+   a mask and K6-K8 at the shapes of msm_bench_bls, as in phase 2.
 8. prove_fixture_bls: proves the committed BLS12-381 MulChain(7, 12) key
    (`tests/vectors/torch_pk_bls12_381_mulchain12.npz`, m = 26) at its
    committed (r, s); the proof must equal the JAX package's committed
@@ -49,7 +50,17 @@ Phases, each printing one JSON line with its wall seconds as it ends:
 9. prove_full_bls: MulChain(seed=4, n = 2^20 − 64) over BLS12-381 (domain
    2^20, m = 2097026, the reference's configuration 3) against a synthetic
    BLS12-381 key made as prove_full's, with the same checks. Launch counts
-   of this prove go into the kernel line for the BLS12-381 instances.
+   of this prove go into the kernel line for the BLS12-381 instances of
+   K1-K4.
+10. prove_full_bls_affine: the same prove with `affine_msm=True` (the
+   reference's configuration 3 under SNARK_TPU_MSM_AFFINE=1), with the same
+   checks; the affine tree must have engaged in all five MSMs and the proof
+   must equal prove_full_bls's.
+11. msm_bench_bls: `snark_tpu_torch.bench` on BLS12-381 G1 at 2^20 points
+   and G2 at 2^18, signed c = 13, with the scan and with the batch-affine
+   tree, every result equal to the pool oracle. Launch counts of this
+   phase go into the kernel line for the BLS12-381 instances of K5-K8 and
+   K2 without a mask.
 
 The last line is `{"ok": true, "device": {...}}`, printed only when every
 phase passed; any failure exits non-zero. No card: exit 1, no result.
@@ -469,39 +480,50 @@ def phase_kernels(key: SyntheticKey, z_std, device) -> list[dict]:
 
 def phase_kernels_msm(inputs: dict, device) -> tuple[list[dict], dict]:
     """K5 and K2 without a mask at the Horner combine's shape (one lane),
-    K6-K8 at level 0 of the bench MSM's affine tree, against their plain
-    versions. -> (kernel rows, extra timings)."""
+    K6-K8 at level 0 of the bench MSM's affine tree, on the bench inputs'
+    curve, against their plain versions. -> (kernel rows, extra timings)."""
     import torch
 
+    from snark_tpu_torch import _native
     from snark_tpu_torch.bench import host_curve
     from snark_tpu_torch.ops import curve as C
     from snark_tpu_torch.ops import msm_affine as A
     from snark_tpu_torch.ops.msm_plane import PlaneMsm
 
     rows, extra = [], {}
-    curve_src, affine_src = "snark_tpu_torch/csrc/curve.cu", "snark_tpu_torch/csrc/affine.cu"
+    curve = next(iter(inputs.values())).curve
+    bls = curve.name != "bn254"
+    curve_src = "snark_tpu_torch/csrc/" + ("curve_bls.cu" if bls else "curve.cu")
+    affine_src = "snark_tpu_torch/csrc/" + ("affine_bls.cu" if bls else "affine.cu")
+    L = C.limbs_of(curve)
+    fq_mul = imad_per_mul(L)
     for group, inp in inputs.items():
         K = C.GROUPS[group]
         m2 = 1 if K == 1 else 3  # base muls per field mul
-        pt_bytes = 3 * K * 32
-        hc = host_curve(group)
-        p = C.points_to_limbs([inp.want], group, device)
-        q = C.points_to_limbs([hc.double(hc.generator)], group, device)
-        for name, fn, plain, muls, nbytes, src_line in (
-            ("point_double", lambda: C.point_double(p, group),
-             lambda: C.point_double_plain(p, group), MULS[f"dbl_{group}"], 2 * pt_bytes,
+        el_bytes = K * 4 * L
+        pt_bytes = 3 * el_bytes
+
+        def name(kernel):
+            return _native.counter_name(kernel, curve.name, group)
+
+        hc = host_curve(group, curve)
+        p = C.points_to_limbs([inp.want], group, device, curve)
+        q = C.points_to_limbs([hc.double(hc.generator)], group, device, curve)
+        for kernel, fn, plain, muls, nbytes, src_line in (
+            ("point_double", lambda: C.point_double(p, group, curve),
+             lambda: C.point_double_plain(p, group, curve), MULS[f"dbl_{group}"], 2 * pt_bytes,
              "snark_tpu/ops/pallas_curve.py:709"),
-            ("point_add", lambda: C.point_add(p, q, group),
-             lambda: C.point_add_plain(p, q, group), MULS[f"add_{group}"], 3 * pt_bytes,
+            ("point_add", lambda: C.point_add(p, q, group, curve),
+             lambda: C.point_add_plain(p, q, group, curve), MULS[f"add_{group}"], 3 * pt_bytes,
              "snark_tpu/ops/pallas_curve.py:702"),
         ):
             out = fn()
             ref, pms = plain_time(plain)
             rows.append(kernel_row(
-                f"{name}_{group}", curve_src, src_line, cuda_ms(fn, reps=20), pms,
-                max_abs_err(out, ref), muls * IMAD_PER_MUL, nbytes))
+                name(kernel), curve_src, src_line, cuda_ms(fn, reps=20), pms,
+                max_abs_err(out, ref), muls * fq_mul, nbytes))
 
-        plan = PlaneMsm(inp.c, 254, group, signed=True, affine=True)
+        plan = PlaneMsm(inp.c, curve.fr.num_bits, group, signed=True, affine=True, curve=curve)
         n = inp.n
         perm, start, length = plan._buckets(inp.digits.t().contiguous())
         blk_rows, sgn, _, _, B0 = A.AffineAccum(plan).blocks(
@@ -509,50 +531,52 @@ def phase_kernels_msm(inputs: dict, device) -> tuple[list[dict], dict]:
         del perm, start, length
         M = blk_rows.shape[0] // 2
         rb = blk_rows.shape[1]
-        el_bytes = K * 32
 
-        den, cls = A.affine_phase1(blk_rows, sgn, group)
-        ms = cuda_ms(lambda: A.affine_phase1(blk_rows, sgn, group))
-        (pden, pcls), pms = plain_time(lambda: A.affine_phase1_plain(blk_rows, sgn, group))
+        den, cls = A.affine_phase1(blk_rows, sgn, group, curve)
+        ms = cuda_ms(lambda: A.affine_phase1(blk_rows, sgn, group, curve))
+        (pden, pcls), pms = plain_time(lambda: A.affine_phase1_plain(blk_rows, sgn, group, curve))
         err = max(max_abs_err(den, pden), max_abs_err(cls, pcls))
         del pden, pcls
         rows.append(kernel_row(
-            f"affine_phase1_{group}", affine_src, "snark_tpu/ops/msm_affine.py:329", ms, pms, err,
-            M * 4 * K * IMAD_PER_MUL, M * (2 * rb + 2 + el_bytes + 1)))
+            name("affine_phase1"), affine_src, "snark_tpu/ops/msm_affine.py:329", ms, pms, err,
+            M * 4 * K * fq_mul, M * (2 * rb + 2 + el_bytes + 1)))
 
         h = M // 2
         a, b = den[:h], den[h:]
-        tm = A.affine_tree_mul(a, b, group)
-        ms = cuda_ms(lambda: A.affine_tree_mul(a, b, group))
-        ptm, pms = plain_time(lambda: A.affine_tree_mul_plain(a, b, group))
+        tm = A.affine_tree_mul(a, b, group, curve=curve)
+        ms = cuda_ms(lambda: A.affine_tree_mul(a, b, group, curve=curve))
+        ptm, pms = plain_time(lambda: A.affine_tree_mul_plain(a, b, group, curve))
         err = max_abs_err(tm, ptm)
         root = den[:1].contiguous()
-        err = max(err, max_abs_err(A.affine_inverse(root, group), A.affine_inverse_plain(root, group)))
-        extra[f"root_inverse_ms_{group}"] = cuda_ms(lambda: A.affine_inverse(root, group))
+        err = max(err, max_abs_err(A.affine_inverse(root, group, curve),
+                                   A.affine_inverse_plain(root, group, curve)))
+        extra[name("root_inverse_ms")] = cuda_ms(lambda: A.affine_inverse(root, group, curve))
         del tm, ptm
         rows.append(kernel_row(
-            f"affine_tree_mul_{group}", affine_src, "snark_tpu/ops/msm_affine.py:358", ms, pms, err,
-            h * m2 * IMAD_PER_MUL, 3 * h * el_bytes))
+            name("affine_tree_mul"), affine_src, "snark_tpu/ops/msm_affine.py:358", ms, pms, err,
+            h * m2 * fq_mul, 3 * h * el_bytes))
 
         torch.cuda.synchronize()
         t = time.time()
-        dinv = A.batch_inverse(den, group)
+        dinv = A.batch_inverse(den, group, curve)
         torch.cuda.synchronize()
-        extra[f"batch_inverse_ms_{group}"] = (time.time() - t) * 1e3
-        out = A.affine_phase3(blk_rows, sgn, dinv, cls, group)
-        ms = cuda_ms(lambda: A.affine_phase3(blk_rows, sgn, dinv, cls, group))
-        ref, pms = plain_time(lambda: A.affine_phase3_plain(blk_rows, sgn, dinv, cls, group))
+        extra[name("batch_inverse_ms")] = (time.time() - t) * 1e3
+        out = A.affine_phase3(blk_rows, sgn, dinv, cls, group, curve)
+        ms = cuda_ms(lambda: A.affine_phase3(blk_rows, sgn, dinv, cls, group, curve))
+        ref, pms = plain_time(
+            lambda: A.affine_phase3_plain(blk_rows, sgn, dinv, cls, group, curve))
         err = max_abs_err(out, ref)
         counts = torch.bincount(cls.to(torch.int64), minlength=5).tolist()
         computed = counts[A.ADD] + counts[A.DOUBLE]
-        extra[f"level0_classes_{group}"] = dict(zip(("add", "double", "dead", "copy_l", "copy_r"), counts))
-        extra[f"level0_pairs_{group}"] = M
+        extra[name("level0_classes")] = dict(
+            zip(("add", "double", "dead", "copy_l", "copy_r"), counts))
+        extra[name("level0_pairs")] = M
         # decode 4K and encode 2K base muls per pair; λ, λ², λ·(x1 − x3) per
         # computed pair; x1² per double
         muls = M * 6 * K + (3 * computed + counts[A.DOUBLE]) * m2
         rows.append(kernel_row(
-            f"affine_phase3_{group}", affine_src, "snark_tpu/ops/msm_affine.py:340", ms, pms, err,
-            muls * IMAD_PER_MUL, M * (2 * rb + 2 + el_bytes + 1 + rb)))
+            name("affine_phase3"), affine_src, "snark_tpu/ops/msm_affine.py:340", ms, pms, err,
+            muls * fq_mul, M * (2 * rb + 2 + el_bytes + 1 + rb)))
         del blk_rows, sgn, den, cls, dinv, out, ref
         torch.cuda.empty_cache()
     return rows, extra
@@ -630,26 +654,30 @@ def phase_prove_full(key: SyntheticKey, z: list[int], device, affine_msm: bool =
         "stage_ms": {k: round(v, 3) for k, v in run.stage_ms.items()},
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "msm_exact": True, "h_identity": True, "proof_equals_assembly": True,
+        "affine_engaged": run.affine,
         "launches": {k: v for k, v in launches.items() if v},
     }
     return info, launches, proof
 
 
-def phase_msm_bench(inputs: dict, smi: str) -> tuple[dict, dict]:
-    """`snark_tpu_torch.bench` runs, each exact against the pool oracle.
-    -> (phase info, launch counts of the whole phase)."""
+def phase_msm_bench(inputs: dict, smi: str, unsigned: bool = True) -> tuple[dict, dict]:
+    """`snark_tpu_torch.bench` runs on the inputs' curve, each exact against
+    the pool oracle: G1 and G2 signed, scan and affine, and (`unsigned`) G1
+    unsigned with the scan. -> (phase info, launch counts of the whole
+    phase)."""
     import torch
 
     from snark_tpu_torch import _native
     from snark_tpu_torch import bench as B
 
-    runs = [("g1", True, False), ("g1", True, True), ("g2", True, False), ("g2", True, True),
-            ("g1", False, False)]
+    runs = [("g1", True, False), ("g1", True, True), ("g2", True, False), ("g2", True, True)]
+    runs += [("g1", False, False)] if unsigned else []
     total = dict.fromkeys(_native.LAUNCHES, 0)
     out = []
     for group, signed, affine in runs:
         inp = inputs[group] if signed else B.make_inputs(
-            BENCH_LOG_N[group], signed=False, group=group, device=inputs[group].table.device)
+            BENCH_LOG_N[group], signed=False, group=group, device=inputs[group].table.device,
+            curve=inputs[group].curve)
         _native.reset_launches()
         rec = B.run(inp, affine=affine, iters=2)
         launches = {k: v for k, v in _native.LAUNCHES.items() if v}
@@ -657,7 +685,8 @@ def phase_msm_bench(inputs: dict, smi: str) -> tuple[dict, dict]:
             total[k] += v
         d = rec["detail"]
         if not d["correct"]:
-            raise AssertionError(f"msm_bench {group} signed={signed} affine={affine}: wrong result")
+            raise AssertionError(
+                f"msm_bench {d['curve']} signed={signed} affine={affine}: wrong result")
         if affine and not d["affine_engaged"]:
             raise AssertionError("msm_bench: the affine tree did not engage")
         d["launches"] = launches
@@ -731,21 +760,40 @@ def main() -> int:
     key_bls = SyntheticKey(FULL_N_BLS, seed=1, device=device, curve=BLS12_381)
     z_bls = key_bls.circuit.assignment(BLS12_381.fr.modulus)
     z_std_bls = key_bls.fr.tensor(z_bls, device, mont=False)
+    inputs_bls = {g: B.make_inputs(BENCH_LOG_N[g], signed=True, c=BENCH_C, group=g,
+                                   device=device, curve=BLS12_381) for g in ("g1", "g2")}
     phase_line("setup_bls", t0, constraints=FULL_N_BLS, m=len(z_bls),
-               domain=key_bls.pk.domain_size, table_bytes=key_bls.table_bytes())
+               domain=key_bls.pk.domain_size, table_bytes=key_bls.table_bytes(),
+               bench_points=BENCH_LOG_N)
 
     t0 = time.time()
     bls_rows = phase_kernels(key_bls, z_std_bls, device)
     del z_std_bls
     torch.cuda.empty_cache()
-    phase_line("kernels_bls", t0, all_equal=True, kernels=bls_rows)
+    bls_msm_rows, bls_extra = phase_kernels_msm(inputs_bls, device)
+    phase_line("kernels_bls", t0, all_equal=True, kernels=bls_rows + bls_msm_rows, **bls_extra)
 
     t0 = time.time()
     phase_line("prove_fixture_bls", t0, **phase_prove_fixture(device, bls=True))
 
     t0 = time.time()
-    info_bls, launches_bls, _ = phase_prove_full(key_bls, z_bls, device)
+    info_bls, launches_bls, proof_bls = phase_prove_full(key_bls, z_bls, device)
     phase_line("prove_full_bls", t0, nvidia_smi=smi, **info_bls)
+
+    t0 = time.time()
+    info_bls_a, _, proof_bls_a = phase_prove_full(key_bls, z_bls, device, affine_msm=True)
+    if proof_bls_a != proof_bls:
+        raise AssertionError("the BLS12-381 affine prove's proof differs from prove_full_bls's")
+    if not all(info_bls_a["affine_engaged"].values()):
+        raise AssertionError(f"the affine tree did not engage: {info_bls_a['affine_engaged']}")
+    phase_line("prove_full_bls_affine", t0, nvidia_smi=smi, equals_prove_full=True, **info_bls_a)
+    del key_bls, z_bls
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    info_bb, bench_launches_bls = phase_msm_bench(inputs_bls, smi, unsigned=False)
+    phase_line("msm_bench_bls", t0, **info_bb,
+               launches={k: v for k, v in bench_launches_bls.items() if v})
 
     for row in rows:
         row["launches"] = launches[row["name"]]
@@ -753,7 +801,9 @@ def main() -> int:
         row["launches"] = launches_bls[row["name"]]
     for row in msm_rows:
         row["launches"] = bench_launches[row["name"]]
-    rows = rows + bls_rows + msm_rows
+    for row in bls_msm_rows:
+        row["launches"] = bench_launches_bls[row["name"]]
+    rows = rows + bls_rows + msm_rows + bls_msm_rows
     for row in rows:
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} was not launched on the main path")

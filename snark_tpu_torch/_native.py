@@ -56,18 +56,17 @@ _SIGNATURES = {
 }
 
 # The curve code every entry point takes first (csrc/field.cuh), and the
-# kernels each curve has instances of. An entry point returns NOT_PORTED
-# for a curve it has no instance for; the wrappers refuse such a call
-# before it reaches the library (`require_ported`).
+# kernels each curve has instances of (every kernel, on both curves). An
+# entry point returns NOT_PORTED for a curve it has no instance for; the
+# wrappers refuse such a call before it reaches the library
+# (`require_ported`).
 CURVE_CODES = {"bn254": 0, "bls12_381": 1}
 NOT_PORTED = -1
-_PORTED = {
-    "bn254": {
-        "bucket_madd_rows", "masked_add", "point_double", "ntt_stage", "field_ew",
-        "affine_phase1", "affine_tree_mul", "affine_phase3",
-    },
-    "bls12_381": {"bucket_madd_rows", "masked_add", "ntt_stage", "field_ew"},
-}
+_KERNELS = frozenset({
+    "bucket_madd_rows", "masked_add", "point_double", "ntt_stage", "field_ew",
+    "affine_phase1", "affine_tree_mul", "affine_phase3",
+})
+_PORTED = {"bn254": _KERNELS, "bls12_381": _KERNELS}
 
 
 def counter_name(kernel: str, curve: str, group: str | None = None) -> str:
@@ -80,9 +79,9 @@ def counter_name(kernel: str, curve: str, group: str | None = None) -> str:
 
 
 def require_ported(kernel: str, curve: str) -> None:
-    """Raise for a kernel that has no instance for this curve (the K5-K8
-    BLS12-381 instances are not written yet): no other curve's arithmetic
-    runs in its place."""
+    """Raise for a kernel that has no instance for this curve (a curve
+    outside `CURVE_CODES`, or a kernel not in its `_PORTED` set): no other
+    curve's arithmetic runs in its place."""
     if kernel not in _PORTED.get(curve, ()):
         raise NotImplementedError(
             f"{kernel} has no {curve} instance yet (ported for {curve}: "

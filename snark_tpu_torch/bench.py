@@ -18,7 +18,9 @@ per window in the combine.
 Environment, as `bench.py` reads it: BENCH_LOG_N (20), BENCH_SIGNED (1),
 BENCH_WINDOW (13 signed, 12 unsigned), BENCH_ITERS (3); and
 SNARK_TPU_MSM_AFFINE (0): 1 accumulates the buckets with the batch-affine
-tree. The library itself reads no environment variable.
+tree. The library itself reads no environment variable. The command line
+runs BN254, as `bench.py` does; `make_inputs` and `run` take any ported
+curve (`chip_smoke.py` runs them on BLS12-381 as well).
 """
 
 from __future__ import annotations
@@ -33,8 +35,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .fields.limbs import FR
-from .fields.params import BN254
+from .fields.limbs import fields_of
+from .fields.params import BN254, CurveParams
 from .ops.curve import limbs_to_points, pack_rows_u8
 from .ops.curve_host import host_g1, host_g2
 from .ops.msm import signed_digits, unsigned_digits
@@ -52,34 +54,36 @@ class BenchInputs:
     table: torch.Tensor  # (n, row_bytes) uint8 on the device
     digits: torch.Tensor  # (n, W) int32 on the device
     want: tuple  # the host oracle's affine point
+    curve: CurveParams = BN254
 
 
-def host_curve(group: str):
-    return host_g1(BN254) if group == "g1" else host_g2(BN254)
+def host_curve(group: str, curve: CurveParams = BN254):
+    return host_g1(curve) if group == "g1" else host_g2(curve)
 
 
 def make_inputs(
     log_n: int = 20, signed: bool = True, c: int | None = None, group: str = "g1",
-    device="cuda", seed: int = 7,
+    device="cuda", seed: int = 7, curve: CurveParams = BN254,
 ) -> BenchInputs:
     """The table of a tiled 64-point pool, uniform scalars from `seed`, the
     window digits on the device, and the exact oracle
     Σ_j pool_j · (Σ_{i ≡ j mod 64} s_i)."""
     n = 1 << log_n
     c = c or (13 if signed else 12)
-    hc = host_curve(group)
-    r = BN254.fr.modulus
+    hc = host_curve(group, curve)
+    r = curve.fr.modulus
     pool = [hc.scalar_mul(hc.generator, k + 1) for k in range(POOL)]
-    table = torch.as_tensor(np.tile(pack_rows_u8(pool, group), (n // POOL, 1)), device=device)
+    rows = pack_rows_u8(pool, group, curve)
+    table = torch.as_tensor(np.tile(rows, (n // POOL, 1)), device=device)
     rng = random.Random(seed)
     scalars = [rng.randrange(0, r) for _ in range(n)]
-    std = FR.tensor(scalars, device, mont=False)
-    digits = (signed_digits if signed else unsigned_digits)(std, c, BN254.fr.num_bits)
+    std = fields_of(curve)[0].tensor(scalars, device, mont=False)
+    digits = (signed_digits if signed else unsigned_digits)(std, c, curve.fr.num_bits)
     agg = [0] * POOL
     for i, s in enumerate(scalars):
         agg[i % POOL] += s
     want = hc.msm(pool, [a % r for a in agg])
-    return BenchInputs(group, n, c, signed, table, digits.contiguous(), want)
+    return BenchInputs(group, n, c, signed, table, digits.contiguous(), want, curve)
 
 
 def work_adds(plan: PlaneMsm, n: int) -> int:
@@ -121,7 +125,10 @@ def run(inp: BenchInputs, affine: bool = False, iters: int = 3) -> dict:
     """Time `iters` MSMs after one warm-up; check the warm-up's result
     against the oracle. -> the JSON record."""
     dev = inp.table.device
-    plan = PlaneMsm(inp.c, BN254.fr.num_bits, inp.group, signed=inp.signed, affine=affine)
+    curve = inp.curve
+    plan = PlaneMsm(
+        inp.c, curve.fr.num_bits, inp.group, signed=inp.signed, affine=affine, curve=curve
+    )
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     out0 = plan.msm(inp.table, inp.digits).cpu()
@@ -129,14 +136,14 @@ def run(inp: BenchInputs, affine: bool = False, iters: int = 3) -> dict:
     for _ in range(iters):
         plan.msm(inp.table, inp.digits).cpu()  # the readback synchronises
     dt = (time.perf_counter() - t0) / iters
-    got = limbs_to_points(out0[None], inp.group)[0]
+    got = limbs_to_points(out0[None], inp.group, curve)[0]
     adds = work_adds(plan, inp.n)
     detail = {
         "n_points": inp.n,
         "window_bits": inp.c,
         "num_windows": plan.W,
         "msm_wall_s": dt,
-        "curve": f"bn254_{inp.group}",
+        "curve": f"{curve.name}_{inp.group}",
         "signed_digits": inp.signed,
         "affine": affine,
         "affine_engaged": plan.uses_affine(inp.n),

@@ -1,9 +1,8 @@
 // Curve kernels of the bucket MSM, for G1 (over Fq) and G2 (over Fq2): the
 // C entry points, and the BN254 instances. The kernels themselves are
 // templates in curve_kernels.cuh; curve_bls.cu compiles the BLS12-381
-// instances of K1 and K2 in a process of its own, and each entry point
-// takes a curve code (kBn254, kBls12_381) and dispatches on it. K5 has no
-// BLS12-381 instance yet and refuses that code.
+// instances of K1, K2 and K5 in a process of its own, and each entry point
+// takes a curve code (kBn254, kBls12_381) and dispatches on it.
 //
 // K1 bucket_madd_rows replaces snark_tpu/ops/pallas_curve.py
 //   make_masked_mixed_add_rows (bodies _madd_mixed_body and
@@ -70,7 +69,9 @@ extern "C" int snark_masked_add(int curve, int group, const void* p, const void*
 
 extern "C" int snark_point_double(int curve, int group, const void* p, void* out, int lanes,
                                   void* stream) {
-  if (curve != kBn254) return kNotPorted;
   if (lanes <= 0) return 0;
-  return launch_point_double<FqParams>(group, p, out, lanes, (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (curve == kBn254) return launch_point_double<FqParams>(group, p, out, lanes, s);
+  if (curve == kBls12_381) return bls_point_double(group, p, out, lanes, s);
+  return kNotPorted;
 }

@@ -1,7 +1,7 @@
-// Curve arithmetic shared by the curve kernels (curve.cu, curve_bls.cu) and
-// the batch-affine kernels (affine.cu): G1 over Fq, G2 over Fq2, for BN254
-// (Fq 8 limbs) and BLS12-381 (Fq 12 limbs), from one template over the
-// base field's params (field.cuh) and the per-curve constants below.
+// Curve arithmetic shared by the curve kernels (curve_kernels.cuh) and the
+// batch-affine kernels (affine_kernels.cuh): G1 over Fq, G2 over Fq2, for
+// BN254 (Fq 8 limbs) and BLS12-381 (Fq 12 limbs), from one template over
+// the base field's params (field.cuh) and the per-curve constants below.
 //
 // Points are projective (X, Y, Z) in the port's limb format (field.cuh):
 // a lane is 3 * K * N u32 words, K = 1 for G1 and 2 for G2, N the base

@@ -1,8 +1,8 @@
-// The BLS12-381 instances of K1 bucket_madd_rows and K2 masked_add (G1
-// over Fq, G2 over Fq2, 12-limb Fq), compiled apart from curve.cu so that
-// the two run as separate nvcc processes; curve.cu's entry points call
-// these launchers for the kBls12_381 curve code. What the kernels replace
-// and what bounds them is in curve.cu.
+// The BLS12-381 instances of K1 bucket_madd_rows, K2 masked_add and K5
+// point_double (G1 over Fq, G2 over Fq2, 12-limb Fq), compiled apart from
+// curve.cu so that the two run as separate nvcc processes; curve.cu's entry
+// points call these launchers for the kBls12_381 curve code. What the
+// kernels replace and what bounds them is in curve.cu.
 
 #include "curve_kernels.cuh"
 
@@ -19,6 +19,10 @@ int bls_bucket_madd_rows(int group, const void* acc_in, void* acc_out, const voi
 int bls_masked_add(int group, const void* p, const void* q, const void* mask, void* out,
                    int lanes, cudaStream_t s) {
   return launch_masked_add<BlsFqParams>(group, p, q, mask, out, lanes, s);
+}
+
+int bls_point_double(int group, const void* p, void* out, int lanes, cudaStream_t s) {
+  return launch_point_double<BlsFqParams>(group, p, out, lanes, s);
 }
 
 }  // namespace snark

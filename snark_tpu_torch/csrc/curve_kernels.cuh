@@ -111,5 +111,6 @@ int bls_bucket_madd_rows(int group, const void* acc_in, void* acc_out, const voi
                          int k_steps, cudaStream_t s);
 int bls_masked_add(int group, const void* p, const void* q, const void* mask, void* out,
                    int lanes, cudaStream_t s);
+int bls_point_double(int group, const void* p, void* out, int lanes, cudaStream_t s);
 
 }  // namespace snark

@@ -68,9 +68,20 @@ static __constant__ uint32_t kBlsFqP[12] = {
     0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu,
     0xf6b0f624u, 0x6730d2a0u, 0xf38512bfu, 0x64774b84u,
     0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
+// The Fermat exponents q - 2 of the two base fields (the inverse of the
+// batch-affine tree, affine_kernels.cuh): BN254 Fq (254 bits)
+static __constant__ uint32_t kQMinus2[8] = {
+    0xd87cfd45u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u,
+    0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
+// and BLS12-381 Fq (381 bits)
+static __constant__ uint32_t kBlsQMinus2[12] = {
+    0xffffaaa9u, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu,
+    0xf6b0f624u, 0x6730d2a0u, 0xf38512bfu, 0x64774b84u,
+    0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
 
 // kInlineMul: whether the Montgomery product is inlined at every use (see
-// operator* below).
+// operator* below). The base fields also give their Fermat exponent: its
+// word i (pm2) and its bit length (kPm2Bits).
 struct FrParams {
   static constexpr uint32_t kN0 = 0xefffffffu;  // -p^-1 mod 2^32
   static constexpr int N = 8;
@@ -83,6 +94,8 @@ struct FqParams {
   static constexpr int N = 8;
   static constexpr bool kInlineMul = true;
   static __device__ __forceinline__ uint32_t p(int i) { return kFqP[i]; }
+  static constexpr int kPm2Bits = 254;
+  static __device__ __forceinline__ uint32_t pm2(int i) { return kQMinus2[i]; }
 };
 
 struct BlsFrParams {
@@ -97,6 +110,8 @@ struct BlsFqParams {
   static constexpr int N = 12;
   static constexpr bool kInlineMul = false;
   static __device__ __forceinline__ uint32_t p(int i) { return kBlsFqP[i]; }
+  static constexpr int kPm2Bits = 381;
+  static __device__ __forceinline__ uint32_t pm2(int i) { return kBlsQMinus2[i]; }
 };
 
 template <class P>

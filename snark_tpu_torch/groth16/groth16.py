@@ -17,8 +17,7 @@ path computes them:
    each finished by a host Horner combine; with `affine_msm=True` the
    buckets of an MSM with at least 8 elements per bucket are accumulated
    by the batch-affine tree (K6-K8, `ops/msm_affine.py`) instead, as the
-   reference does under SNARK_TPU_MSM_AFFINE=1 (BN254 only: K6-K8 have no
-   BLS12-381 instances yet);
+   reference does under SNARK_TPU_MSM_AFFINE=1;
 6. `assemble_proof` on the host. `verify` pairs on the host.
 
 Proofs follow the arkworks conventions (eprint 2016/260):
@@ -185,27 +184,24 @@ def assemble_proof(g16, pk, A_sum, B_sum, B1_sum, L_sum, H_sum, r, s) -> Proof:
 class ProveRun:
     """What the last prove left behind for inspection: stage wall times
     (milliseconds, each ending in a device synchronise), the five MSM
-    sums and h (canonical standard form, bit-reversed order)."""
+    sums, h (canonical standard form, bit-reversed order) and, per MSM,
+    whether the batch-affine tree accumulated its buckets."""
 
     stage_ms: dict
     sums: dict
     h_std: torch.Tensor
+    affine: dict
 
 
 class Groth16:
     """Groth16 over BN254 or BLS12-381 on one device (`"cuda"` by default).
-    The MSMs accumulate their buckets with the scan, or, on BN254, with the
+    The MSMs accumulate their buckets with the scan, or with the
     batch-affine tree where it applies when `affine_msm` is set (off by
     default, as in the reference)."""
 
     def __init__(self, curve: CurveParams = BN254, device="cuda", affine_msm: bool = False):
         if curve not in PORTED_CURVES:
             raise ValueError(f"no port for {curve.name}")
-        if affine_msm and curve is not BN254:
-            raise NotImplementedError(
-                f"affine_msm needs K6-K8 (affine_phase1, affine_tree_mul, affine_phase3),"
-                f" which have no {curve.name} instances yet"
-            )
         self.curve = curve
         self.fr = fields_of(curve)[0]
         self.device = resolve_device(device)
@@ -249,7 +245,8 @@ class Groth16:
         return from_mont(self.ntt_plan(pk.domain_size).h_from_evals(a, b, c), self.fr)
 
     def msm_sums(self, pk: ProvingKey, z_std: torch.Tensor, h_std: torch.Tensor, tick):
-        """Stages 4-5: the five MSMs -> affine host points."""
+        """Stages 4-5: the five MSMs -> (affine host points, whether each
+        took the batch-affine tree)."""
         nbits = self.curve.fr.num_bits
         c = pick_window_plane_signed(z_std.shape[0])
         z_digits = signed_digits(z_std, c, nbits)
@@ -257,7 +254,7 @@ class Groth16:
         tick("digits")
         g1, g2 = self.msm_plan(c, "g1"), self.msm_plan(c, "g2")
         ni = pk.num_instance
-        sums = {}
+        sums, affine = {}, {}
         for name, plan, tbl, digits, hc in (
             ("A", g1, pk.a_tbl, z_digits, self.hg1),
             ("B", g2, pk.b_g2_tbl, z_digits, self.hg2),
@@ -266,8 +263,9 @@ class Groth16:
             ("H", g1, pk.h_tbl, h_digits, self.hg1),
         ):
             sums[name] = plan.msm_host(tbl, digits.contiguous(), hc)
+            affine[name] = plan.uses_affine(digits.shape[0])
             tick(f"msm {name}")
-        return sums
+        return sums, affine
 
     def prove_from_assignment(self, pk: ProvingKey, z: list[int], r: int, s: int) -> Proof:
         """Prove from the full assignment z (ONE first, instance, witness)
@@ -294,12 +292,12 @@ class Groth16:
         tick("matvec")
         h_std = self.h_coefficients(pk, a, b, c)
         tick("h")
-        sums = self.msm_sums(pk, z_std, h_std, tick)
+        sums, affine = self.msm_sums(pk, z_std, h_std, tick)
         proof = assemble_proof(
             self, pk, sums["A"], sums["B"], sums["B1"], sums["L"], sums["H"], r, s
         )
         tick("assemble")
-        self.last_run = ProveRun(stage_ms, sums, h_std)
+        self.last_run = ProveRun(stage_ms, sums, h_std, affine)
         return proof
 
     # ----- verify (host pairing) ---------------------------------------------

@@ -42,10 +42,6 @@ def row_digits(curve: CurveParams = BN254) -> int:
     return 2 * curve.fq.num_limbs + 2
 
 
-ROW_DIGITS = row_digits(BN254)  # BN254's, which the affine kernels read
-R_WIDE = 1 << (8 * ROW_DIGITS)  # the BN254 rows' Montgomery radix, 2^272
-
-
 def row_bytes(group: str, curve: CurveParams = BN254) -> int:
     return 2 * GROUPS[group] * row_digits(curve) + 1
 

@@ -20,12 +20,14 @@ coordinates. The port's values are always reduced, so the rows K8 writes are
 canonical without the reference's explicit canonicalisation; the CPU tests
 hold them byte for byte against the reference's.
 
-K6-K8 exist for BN254 only: `PlaneMsm` refuses `affine=True` on
-BLS12-381, and the library refuses any other curve code.
+Every function takes the curve (BN254 by default); K6-K8 have instances
+for BN254 and BLS12-381, and `AffineAccum` runs on its plan's curve.
 
-Layouts: rows (2M, row_bytes) uint8 in (`ops/curve.py`); sign bytes (2M,)
-uint8 at level 0; den and dinv (M, K, 8) int32 limbs at R = 2^256; classes
-(M,) uint8: ADD 0, DOUBLE 1, DEAD 2, COPY_L 3, COPY_R 4.
+Layouts: rows (2M, row_bytes) uint8 in the key's format (`ops/curve.py`:
+2·K·D + 1 bytes, D = 34 for BN254 and 50 for BLS12-381); sign bytes (2M,)
+uint8 at level 0; den and dinv (M, K, L) int32 limbs at R = 2^(32·L), L = 8
+for BN254 and 12 for BLS12-381; classes (M,) uint8: ADD 0, DOUBLE 1, DEAD 2,
+COPY_L 3, COPY_R 4.
 """
 
 from __future__ import annotations
@@ -35,11 +37,11 @@ import math
 import torch
 
 from .. import _native
-from ..fields.limbs import FQ, from_words, mont_mul_words, to_words
-from .curve import GROUPS, ROW_DIGITS, R_WIDE, _PlainCurve, row_bytes
+from ..fields.limbs import Field, fields_of, from_words, mont_mul_words, to_words
+from ..fields.params import BN254, CurveParams
+from .curve import GROUPS, _launch, _PlainCurve, limbs_of, row_bytes, row_digits
 
 ADD, DOUBLE, DEAD, COPY_L, COPY_R = range(5)
-_BN254 = _native.CURVE_CODES["bn254"]  # K6-K8 have BN254 instances only
 PLAIN_CHUNK = 1 << 20  # pairs per step of the plain versions (bounds memory)
 
 
@@ -48,15 +50,15 @@ PLAIN_CHUNK = 1 << 20  # pairs per step of the plain versions (bounds memory)
 # ---------------------------------------------------------------------------
 
 
-def _field_one(K: int, device) -> torch.Tensor:
-    """(1, K, 8) words of the field's one (Montgomery)."""
-    one = torch.zeros((1, K, 8), dtype=torch.int64, device=device)
-    one[0, 0] = to_words(FQ.const(1, device))
+def _field_one(K: int, fq: Field, device) -> torch.Tensor:
+    """(1, K, L) words of the field's one (Montgomery)."""
+    one = torch.zeros((1, K, fq.limbs), dtype=torch.int64, device=device)
+    one[0, 0] = to_words(fq.const(1, device))
     return one
 
 
 def _decode_pairs(pc: _PlainCurve, rows: torch.Tensor, sgn):
-    """(2M, row_bytes) rows -> x1, y1, x2, y2 (M, K, 8) words and the live
+    """(2M, row_bytes) rows -> x1, y1, x2, y2 (M, K, L) words and the live
     flags f1, f2 (M,); the sign bytes negate y."""
     x, y = pc.decode_rows(rows)
     if sgn is not None:
@@ -84,14 +86,14 @@ def _chunks(total: int):
         yield lo, min(total, lo + PLAIN_CHUNK)
 
 
-def affine_phase1_plain(rows, sgn, group: str):
+def affine_phase1_plain(rows, sgn, group: str, curve: CurveParams = BN254):
     """Plain version of K6."""
     K = GROUPS[group]
-    pc = _PlainCurve(group, rows.device)
+    pc = _PlainCurve(group, rows.device, curve)
     M = rows.shape[0] // 2
-    den = torch.empty((M, K, 8), dtype=torch.int32, device=rows.device)
+    den = torch.empty((M, K, pc.fq.limbs), dtype=torch.int32, device=rows.device)
     cls = torch.empty((M,), dtype=torch.uint8, device=rows.device)
-    one = _field_one(K, rows.device)
+    one = _field_one(K, pc.fq, rows.device)
     for lo, hi in _chunks(M):
         s = None if sgn is None else sgn[2 * lo : 2 * hi]
         x1, y1, x2, y2, f1, f2 = _decode_pairs(pc, rows[2 * lo : 2 * hi], s)
@@ -104,23 +106,26 @@ def affine_phase1_plain(rows, sgn, group: str):
 
 
 def _encode_rows(pc: _PlainCurve, x, y, live) -> torch.Tensor:
-    """x, y (M, K, 8) words, live (M,) -> (M, row_bytes) uint8 rows."""
-    M, K = x.shape[0], x.shape[1]
-    to_row = to_words(FQ.const(R_WIDE % FQ.p, x.device, mont=False))
-    w = mont_mul_words(torch.cat([x, y], dim=1), to_row, FQ)  # (M, 2K, 8)
-    b = torch.stack([(w >> (8 * i)) & 0xFF for i in range(4)], dim=-1).reshape(M, 2 * K, 32)
-    pad = torch.zeros((M, 2 * K, ROW_DIGITS - 32), dtype=b.dtype, device=b.device)
-    body = torch.cat([b, pad], dim=2).reshape(M, 2 * K * ROW_DIGITS)
+    """x, y (M, K, L) words, live (M,) -> (M, row_bytes) uint8 rows: each
+    component the D bytes of x·2^(8·D) mod q (K8 multiplies by that radix
+    and writes the 4·L bytes of the product and two zero bytes)."""
+    M, K, L = x.shape
+    fq, D = pc.fq, row_digits(pc.curve)
+    to_row = to_words(fq.const((1 << (8 * D)) % fq.p, x.device, mont=False))
+    w = mont_mul_words(torch.cat([x, y], dim=1), to_row, fq)  # (M, 2K, L)
+    b = torch.stack([(w >> (8 * i)) & 0xFF for i in range(4)], dim=-1).reshape(M, 2 * K, 4 * L)
+    pad = torch.zeros((M, 2 * K, D - 4 * L), dtype=b.dtype, device=b.device)
+    body = torch.cat([b, pad], dim=2).reshape(M, 2 * K * D)
     return torch.cat([body, live.to(body.dtype)[:, None]], dim=1).to(torch.uint8)
 
 
-def affine_phase3_plain(rows, sgn, dinv, cls, group: str):
+def affine_phase3_plain(rows, sgn, dinv, cls, group: str, curve: CurveParams = BN254):
     """Plain version of K8."""
     K = GROUPS[group]
-    pc = _PlainCurve(group, rows.device)
+    pc = _PlainCurve(group, rows.device, curve)
     M = rows.shape[0] // 2
-    out = torch.empty((M, row_bytes(group)), dtype=torch.uint8, device=rows.device)
-    one = _field_one(K, rows.device)
+    out = torch.empty((M, row_bytes(group, curve)), dtype=torch.uint8, device=rows.device)
+    one = _field_one(K, pc.fq, rows.device)
     for lo, hi in _chunks(M):
         s = None if sgn is None else sgn[2 * lo : 2 * hi]
         x1, y1, x2, y2, _, _ = _decode_pairs(pc, rows[2 * lo : 2 * hi], s)
@@ -140,35 +145,37 @@ def affine_phase3_plain(rows, sgn, dinv, cls, group: str):
     return out
 
 
-def affine_tree_mul_plain(a, b, group: str) -> torch.Tensor:
+def affine_tree_mul_plain(a, b, group: str, curve: CurveParams = BN254) -> torch.Tensor:
     """Plain version of K7, mode 0: a·b per element of Fq (G1) or Fq2 (G2)."""
-    (r,) = _PlainCurve(group, a.device).mul_many([(to_words(a), to_words(b))])
+    (r,) = _PlainCurve(group, a.device, curve).mul_many([(to_words(a), to_words(b))])
     return from_words(r)
 
 
-def _fermat_inv_words(z: torch.Tensor) -> torch.Tensor:
-    """z^(q−2) on (N, 8) Fq words (0 for 0), square and multiply from the
+def _fermat_inv_words(z: torch.Tensor, fq: Field) -> torch.Tensor:
+    """z^(q−2) on (N, L) Fq words (0 for 0), square and multiply from the
     top bit, as K7 does it."""
-    e = FQ.p - 2
-    acc = to_words(FQ.const(1, z.device)).expand_as(z)
+    e = fq.p - 2
+    acc = to_words(fq.const(1, z.device)).expand_as(z)
     for i in range(e.bit_length() - 1, -1, -1):
-        acc = mont_mul_words(acc, acc, FQ)
+        acc = mont_mul_words(acc, acc, fq)
         if (e >> i) & 1:
-            acc = mont_mul_words(acc, z, FQ)
+            acc = mont_mul_words(acc, z, fq)
     return acc
 
 
-def affine_inverse_plain(a, group: str) -> torch.Tensor:
+def affine_inverse_plain(a, group: str, curve: CurveParams = BN254) -> torch.Tensor:
     """Plain version of K7, mode 1: a^-1 per element (0 for 0). Fq2 goes
-    through the norm: (c0 + c1·u)^-1 = (c0 − c1·u) / (c0² + c1²)."""
+    through the norm: (c0 + c1·u)^-1 = (c0 − c1·u) / (c0² + c1²), as
+    u² = −1 on both curves."""
     w = to_words(a)
+    pc = _PlainCurve("g1", a.device, curve)
+    fq = pc.fq
     if GROUPS[group] == 1:
-        return from_words(_fermat_inv_words(w[:, 0])[:, None])
+        return from_words(_fermat_inv_words(w[:, 0], fq)[:, None])
     c0, c1 = w[:, 0], w[:, 1]
-    sq = mont_mul_words(torch.stack([c0, c1]), torch.stack([c0, c1]), FQ)
-    pc = _PlainCurve("g1", a.device)
-    ninv = _fermat_inv_words(pc.add(sq[0], sq[1]))
-    r = mont_mul_words(torch.stack([c0, c1]), torch.stack([ninv, ninv]), FQ)
+    sq = mont_mul_words(torch.stack([c0, c1]), torch.stack([c0, c1]), fq)
+    ninv = _fermat_inv_words(pc.add(sq[0], sq[1]), fq)
+    r = mont_mul_words(torch.stack([c0, c1]), torch.stack([ninv, ninv]), fq)
     return from_words(torch.stack([r[0], pc.sub(torch.zeros_like(r[1]), r[1])], dim=1))
 
 
@@ -177,8 +184,8 @@ def affine_inverse_plain(a, group: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _check_rows(rows: torch.Tensor, sgn, group: str) -> int:
-    rb = row_bytes(group)
+def _check_rows(rows: torch.Tensor, sgn, group: str, curve: CurveParams) -> int:
+    rb = row_bytes(group, curve)
     if rows.dtype != torch.uint8 or rows.dim() != 2 or rows.shape[1] != rb or rows.shape[0] % 2:
         raise ValueError(f"rows: want uint8 (2M, {rb}), got {rows.dtype} {tuple(rows.shape)}")
     if sgn is not None and (sgn.dtype != torch.uint8 or tuple(sgn.shape) != (rows.shape[0],)):
@@ -186,12 +193,12 @@ def _check_rows(rows: torch.Tensor, sgn, group: str) -> int:
     return rows.shape[0] // 2
 
 
-def _check_elems(t: torch.Tensor, n: int, group: str, name: str) -> int:
-    K = GROUPS[group]
-    if t.dtype != torch.int32 or t.dim() != 3 or tuple(t.shape[1:]) != (K, 8) or (
+def _check_elems(t: torch.Tensor, n: int, group: str, name: str, curve: CurveParams) -> int:
+    K, L = GROUPS[group], limbs_of(curve)
+    if t.dtype != torch.int32 or t.dim() != 3 or tuple(t.shape[1:]) != (K, L) or (
         n >= 0 and t.shape[0] != n
     ):
-        raise ValueError(f"{name}: want int32 ({n}, {K}, 8), got {t.dtype} {tuple(t.shape)}")
+        raise ValueError(f"{name}: want int32 ({n}, {K}, {L}), got {t.dtype} {tuple(t.shape)}")
     return t.shape[0]
 
 
@@ -199,69 +206,78 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def affine_phase1(rows: torch.Tensor, sgn, group: str = "g1"):
-    """K6: pairs (2j, 2j+1) of `rows` -> (den (M, K, 8), classes (M,))."""
-    M = _check_rows(rows, sgn, group)
+def affine_phase1(rows: torch.Tensor, sgn, group: str = "g1", curve: CurveParams = BN254):
+    """K6: pairs (2j, 2j+1) of `rows` -> (den (M, K, L), classes (M,))."""
+    _native.require_ported("affine_phase1", curve.name)
+    M = _check_rows(rows, sgn, group, curve)
     if rows.device.type == "cpu":
-        return affine_phase1_plain(rows, sgn, group)
+        return affine_phase1_plain(rows, sgn, group, curve)
     _native.require_cuda(rows, *([] if sgn is None else [sgn]))
-    den = torch.empty((M, GROUPS[group], 8), dtype=torch.int32, device=rows.device)
+    den = torch.empty((M, GROUPS[group], limbs_of(curve)), dtype=torch.int32, device=rows.device)
     cls = torch.empty((M,), dtype=torch.uint8, device=rows.device)
-    _native.launch(
-        "affine_phase1", "affine_phase1_" + group, _BN254, GROUPS[group], rows.data_ptr(),
-        rows.shape[1], _ptr(sgn), den.data_ptr(), cls.data_ptr(), M,
+    _launch(
+        "affine_phase1", "affine_phase1", curve, group, rows.data_ptr(), rows.shape[1], _ptr(sgn),
+        den.data_ptr(), cls.data_ptr(), M,
     )
     return den, cls
 
 
-def affine_phase3(rows: torch.Tensor, sgn, dinv: torch.Tensor, cls: torch.Tensor, group: str = "g1"):
+def affine_phase3(
+    rows: torch.Tensor, sgn, dinv: torch.Tensor, cls: torch.Tensor, group: str = "g1",
+    curve: CurveParams = BN254,
+):
     """K8: the affine add of each pair -> (M, row_bytes) rows."""
-    M = _check_rows(rows, sgn, group)
-    _check_elems(dinv, M, group, "dinv")
+    _native.require_ported("affine_phase3", curve.name)
+    M = _check_rows(rows, sgn, group, curve)
+    _check_elems(dinv, M, group, "dinv", curve)
     if cls.dtype != torch.uint8 or tuple(cls.shape) != (M,):
         raise ValueError(f"cls: want uint8 ({M},), got {cls.dtype} {tuple(cls.shape)}")
     if rows.device.type == "cpu":
-        return affine_phase3_plain(rows, sgn, dinv, cls, group)
+        return affine_phase3_plain(rows, sgn, dinv, cls, group, curve)
     _native.require_cuda(rows, dinv, cls, *([] if sgn is None else [sgn]))
     out = torch.empty((M, rows.shape[1]), dtype=torch.uint8, device=rows.device)
-    _native.launch(
-        "affine_phase3", "affine_phase3_" + group, _BN254, GROUPS[group], rows.data_ptr(),
-        rows.shape[1], _ptr(sgn), dinv.data_ptr(), cls.data_ptr(), out.data_ptr(), M,
+    _launch(
+        "affine_phase3", "affine_phase3", curve, group, rows.data_ptr(), rows.shape[1], _ptr(sgn),
+        dinv.data_ptr(), cls.data_ptr(), out.data_ptr(), M,
     )
     return out
 
 
-def affine_tree_mul(a: torch.Tensor, b: torch.Tensor, group: str = "g1", out=None) -> torch.Tensor:
+def affine_tree_mul(
+    a: torch.Tensor, b: torch.Tensor, group: str = "g1", out=None, curve: CurveParams = BN254
+) -> torch.Tensor:
     """K7, mode 0: a·b per element (into `out` when given)."""
-    n = _check_elems(a, -1, group, "a")
-    _check_elems(b, n, group, "b")
+    _native.require_ported("affine_tree_mul", curve.name)
+    n = _check_elems(a, -1, group, "a", curve)
+    _check_elems(b, n, group, "b", curve)
     if out is not None:
-        _check_elems(out, n, group, "out")
+        _check_elems(out, n, group, "out", curve)
     if a.device.type == "cpu":
-        r = affine_tree_mul_plain(a, b, group)
+        r = affine_tree_mul_plain(a, b, group, curve)
         if out is None:
             return r
         out.copy_(r)
         return out
     out = torch.empty_like(a) if out is None else out
     _native.require_cuda(a, b, out)
-    _native.launch(
-        "affine_tree_mul", "affine_tree_mul_" + group, _BN254, GROUPS[group], 0, a.data_ptr(),
-        b.data_ptr(), out.data_ptr(), n,
+    _launch(
+        "affine_tree_mul", "affine_tree_mul", curve, group, 0, a.data_ptr(), b.data_ptr(),
+        out.data_ptr(), n,
     )
     return out
 
 
-def affine_inverse(a: torch.Tensor, group: str = "g1") -> torch.Tensor:
+def affine_inverse(a: torch.Tensor, group: str = "g1", curve: CurveParams = BN254) -> torch.Tensor:
     """K7, mode 1: a^-1 per element (0 for 0)."""
-    n = _check_elems(a, -1, group, "a")
+    _native.require_ported("affine_tree_mul", curve.name)
+    n = _check_elems(a, -1, group, "a", curve)
     if a.device.type == "cpu":
-        return affine_inverse_plain(a, group)
+        return affine_inverse_plain(a, group, curve)
     _native.require_cuda(a)
     out = torch.empty_like(a)
-    _native.launch(
-        "affine_tree_mul", "affine_tree_mul_" + group, _BN254, GROUPS[group], 1, a.data_ptr(),
-        None, out.data_ptr(), n,
+    _launch(
+        "affine_tree_mul", "affine_tree_mul", curve, group, 1, a.data_ptr(), None,
+        out.data_ptr(), n,
     )
     return out
 
@@ -271,8 +287,8 @@ def affine_inverse(a: torch.Tensor, group: str = "g1") -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def batch_inverse(den: torch.Tensor, group: str = "g1") -> torch.Tensor:
-    """Inverses of (M, K, 8) nonzero elements by a product tree: the
+def batch_inverse(den: torch.Tensor, group: str = "g1", curve: CurveParams = BN254) -> torch.Tensor:
+    """Inverses of (M, K, L) nonzero elements by a product tree: the
     up-sweep multiplies element i with element i + m (the halves of the
     level; an odd level is padded with one), one K7 inverse at the width-1
     root, and the down-sweep gives the left child inv·right and the right
@@ -282,17 +298,17 @@ def batch_inverse(den: torch.Tensor, group: str = "g1") -> torch.Tensor:
     while x.shape[0] > 1:
         w = x.shape[0]
         if w % 2:
-            one = from_words(_field_one(GROUPS[group], x.device))
+            one = from_words(_field_one(GROUPS[group], fields_of(curve)[1], x.device))
             x = torch.cat([x, one])
         m = x.shape[0] // 2
         levels.append((x, w))
-        x = affine_tree_mul(x[:m], x[m:], group)
-    inv = affine_inverse(x, group)
+        x = affine_tree_mul(x[:m], x[m:], group, curve=curve)
+    inv = affine_inverse(x, group, curve)
     for x, w in reversed(levels):
         m = x.shape[0] // 2
         out = torch.empty_like(x)
-        affine_tree_mul(inv, x[m:], group, out=out[:m])
-        affine_tree_mul(inv, x[:m], group, out=out[m:])
+        affine_tree_mul(inv, x[m:], group, out=out[:m], curve=curve)
+        affine_tree_mul(inv, x[:m], group, out=out[m:], curve=curve)
         inv = out[:w]
     return inv
 
@@ -306,7 +322,8 @@ def pick_block_size(mean_len: int) -> int:
 
 
 class AffineAccum:
-    """Batch-affine bucket accumulation bound to one `PlaneMsm` plan."""
+    """Batch-affine bucket accumulation bound to one `PlaneMsm` plan, on
+    its curve and group."""
 
     def __init__(self, plan):
         self.plan = plan
@@ -336,15 +353,15 @@ class AffineAccum:
         return table_s[idx], sgn, boff, nblk, B0
 
     def accumulate(self, table, perm, start, length, n: int, mean_len: int):
-        """-> (lanes, 3, K, 8) bucket accumulators: v levels of pairwise
+        """-> (lanes, 3, K, L) bucket accumulators: v levels of pairwise
         affine adds (K6, the batch inverse, K8), then the K1 scan over the
         block partials."""
         plan = self.plan
-        group = plan.group
+        group, curve = plan.group, plan.curve
         rows, sgn, boff, nblk, B0 = self.blocks(table, perm, start, length, n, mean_len)
         for _ in range(B0.bit_length() - 1):
-            den, cls = affine_phase1(rows, sgn, group)
-            rows = affine_phase3(rows, sgn, batch_inverse(den, group), cls, group)
+            den, cls = affine_phase1(rows, sgn, group, curve)
+            rows = affine_phase3(rows, sgn, batch_inverse(den, group, curve), cls, group, curve)
             sgn = None
         TB = rows.shape[0]
         return plan.run_scan(

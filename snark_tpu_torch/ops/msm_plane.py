@@ -49,8 +49,7 @@ AFFINE_MIN_MEAN = 8  # the affine tree runs when n >= 8 · 2^cb (the reference's
 class PlaneMsm:
     """Bucket MSM for one (c, num_bits, group, digit mode, curve). With
     `affine=True` the buckets are accumulated by the batch-affine tree
-    wherever the mean bucket holds at least 8 elements, else by the scan
-    (BN254 only: K6-K8 have no BLS12-381 instances yet)."""
+    wherever the mean bucket holds at least 8 elements, else by the scan."""
 
     def __init__(
         self,
@@ -61,11 +60,6 @@ class PlaneMsm:
         affine: bool = False,
         curve: CurveParams = BN254,
     ):
-        if affine and curve is not BN254:
-            raise NotImplementedError(
-                f"the batch-affine MSM needs K6-K8 (affine_phase1, affine_tree_mul,"
-                f" affine_phase3), which have no {curve.name} instances yet"
-            )
         self.c = c
         self.group = group
         self.curve = curve

@@ -136,9 +136,10 @@ def test_phase3_rows_match_jax(cases):
     assert np.array_equal(out.numpy(), cases["out"])
     # canonical: the two top bytes of every component are zero and every
     # value is below q
-    comps = out[:, :-1].reshape(PAIRS, 2, C.ROW_DIGITS).numpy()
+    D = C.row_digits()
+    comps = out[:, :-1].reshape(PAIRS, 2, D).numpy()
     assert not comps[:, :, 32:].any()
-    assert all(int.from_bytes(v.tobytes(), "little") < Q for v in comps.reshape(-1, C.ROW_DIGITS))
+    assert all(int.from_bytes(v.tobytes(), "little") < Q for v in comps.reshape(-1, D))
     # the rows decode to the pairwise sums
     pts, s = level0_pairs()
     pts = [HG1.neg(p) if f else p for p, f in zip(pts, s)]

@@ -103,9 +103,9 @@ def _cuda_arrays():
         words = [int(w.strip().rstrip("u"), 16) for w in body.split(",") if w.strip()]
         return sum(w << (32 * i) for i, w in enumerate(words[offset : offset + n_words]))
 
-    def n0(struct):
+    def n0(struct, pattern="kN0 = (0x[0-9a-f]+)u"):
         block = src[src.index("struct " + struct + " {") :]
-        return int(re.search(r"kN0 = (0x[0-9a-f]+)u", block).group(1), 16)
+        return int(re.search(pattern, block).group(1), 0)
 
     return value, n0
 
@@ -116,6 +116,9 @@ def test_bls_cuda_constants_match_params():
     r, q = BLS12_381.fr.modulus, BLS12_381.fq.modulus
     assert value("kBlsFrP", 8) == r and value("kBlsFqP", 12) == q
     assert n0("BlsFrParams") == BLS_FR.n0 and n0("BlsFqParams") == BLS_FQ.n0
+    # the Fermat exponent of the affine tree's inverse, and its bit length
+    assert value("kBlsQMinus2", 12) == q - 2
+    assert n0("BlsFqParams", r"kPm2Bits = (\d+);") == (q - 2).bit_length()
     assert value("kBlsRowToMont", 12) == 1 << 368  # x·2^400 -> x·2^384
     assert value("kBlsMontToRow", 12) == (1 << 400) % q
     assert value("kBlsOneMont", 12) == BLS_FQ.one

@@ -119,7 +119,19 @@ def test_committed_vector_proof_bn254():
 
 
 def test_bls_affine_msm_refused():
-    """The batch-affine MSM has no BLS12-381 kernels (K6-K8): asking for it
-    raises and names them, on every device."""
-    with pytest.raises(NotImplementedError, match="K6-K8"):
-        TorchGroth16(BLS12_381, device="cpu", affine_msm=True)
+    """`affine_msm=True` is not refused on BLS12-381: such a prover proves
+    the m = 26 fixture to the committed JAX proof, and the proof verifies.
+    The affine tree does not engage at this size (it needs n >= 8·2^cb, 64
+    points at the small circuits' window c = 4, and the largest MSM here
+    has 26), so every MSM takes the scan, as the reference's would; the
+    tree itself is held in `tests/test_torch_bls_affine.py`."""
+    pk_path, proof_path = fixture_paths("bls12_381")
+    with open(proof_path) as f:
+        want = json.load(f)
+    pk = TorchProvingKey.load(pk_path, device="cpu")
+    g16 = TorchGroth16(BLS12_381, device="cpu", affine_msm=True)
+    z = TorchMulChain(seed=SEED, n=N).assignment(BLS12_381.fr.modulus)
+    proof = g16.prove_from_assignment(pk, z, int(want["r"]), int(want["s"]))
+    assert tser.serialize_proof(proof, BLS12_381).hex() == want["proof_bytes_hex"]
+    assert g16.verify(pk.vk, want["public_input"], proof)
+    assert g16.last_run.affine == dict.fromkeys(("A", "B", "B1", "L", "H"), False)

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from snark_tpu_torch import _native
-from snark_tpu_torch.fields.limbs import BLS_FR, FQ, FR
+from snark_tpu_torch.fields.limbs import BLS_FR, FR, fields_of
 from snark_tpu_torch.fields.params import BLS12_381, BN254
 from snark_tpu_torch.groth16 import Groth16, ProvingKey
 from snark_tpu_torch.models import MulChainCircuit
@@ -132,42 +132,48 @@ def test_combine_kernels_match_plain(cuda, group):
     assert C.limbs_to_points(s, group) == [hc.add(a, b) for a, b in zip(P, Q)]
 
 
-def affine_level0(group, n, c, seed, cuda):
+def affine_level0(group, n, c, seed, cuda, curve=BN254):
     """Level-0 blocks of a signed affine MSM over a pool with inverse
     pairs and identity rows: (rows, sign bytes)."""
-    hc = HOSTS[group]
+    hc = host_g1(curve) if group == "g1" else host_g2(curve)
+    r = curve.fr.modulus
     rng = random.Random(seed)
-    base = [hc.scalar_mul(hc.generator, rng.randrange(1, R)) for _ in range(7)]
+    base = [hc.scalar_mul(hc.generator, rng.randrange(1, r)) for _ in range(7)]
     pool = base + [hc.neg(pt) for pt in base] + [None, None]
     pts = [pool[i % 16] for i in range(n)]
-    scalars = [rng.randrange(R) for _ in range(n)]
-    table = torch.as_tensor(C.pack_rows_u8(pts, group), device=cuda)
-    plan = PlaneMsm(c, group=group, affine=True)
-    digits = signed_digits(FR.tensor(scalars, cuda, mont=False), c, BN254.fr.num_bits)
+    scalars = [rng.randrange(r) for _ in range(n)]
+    table = torch.as_tensor(C.pack_rows_u8(pts, group, curve), device=cuda)
+    plan = PlaneMsm(c, curve.fr.num_bits, group, affine=True, curve=curve)
+    fr = fields_of(curve)[0]
+    digits = signed_digits(fr.tensor(scalars, cuda, mont=False), c, curve.fr.num_bits)
     perm, start, length = plan._buckets(digits.t().contiguous())
     rows, sgn, _, _, _ = A.AffineAccum(plan).blocks(table, perm, start, length, n, n // plan.nb)
     return rows, sgn
 
 
+@pytest.mark.parametrize("curve", [BN254, BLS12_381], ids=["bn254", "bls12_381"])
 @pytest.mark.parametrize("group", ["g1", "g2"])
-def test_affine_kernels_match_plain(cuda, group):
-    rows, sgn = affine_level0(group, 1 << 12, 9, 9, cuda)
-    den, cls = A.affine_phase1(rows, sgn, group)
-    pden, pcls = A.affine_phase1_plain(rows, sgn, group)
+def test_affine_kernels_match_plain(cuda, group, curve):
+    """K6, K7 (both modes, and the batch inverse) and K8 at level 0 and K6
+    at level 1, against the plain versions, on both curves."""
+    rows, sgn = affine_level0(group, 1 << 12, 9, 9, cuda, curve)
+    den, cls = A.affine_phase1(rows, sgn, group, curve)
+    pden, pcls = A.affine_phase1_plain(rows, sgn, group, curve)
     assert torch.equal(den, pden) and torch.equal(cls, pcls)
     assert set(torch.unique(cls).tolist()) >= {A.ADD, A.DEAD, A.COPY_L, A.COPY_R}
     h = den.shape[0] // 2
-    assert torch.equal(A.affine_tree_mul(den[:h], den[h:], group),
-                       A.affine_tree_mul_plain(den[:h], den[h:], group))
-    assert torch.equal(A.affine_inverse(den[:5], group), A.affine_inverse_plain(den[:5], group))
-    dinv = A.batch_inverse(den, group)
+    assert torch.equal(A.affine_tree_mul(den[:h], den[h:], group, curve=curve),
+                       A.affine_tree_mul_plain(den[:h], den[h:], group, curve))
+    assert torch.equal(A.affine_inverse(den[:5], group, curve),
+                       A.affine_inverse_plain(den[:5], group, curve))
+    dinv = A.batch_inverse(den, group, curve)
     one = torch.zeros_like(den[0])
-    one[0] = FQ.const(1, cuda)
-    assert torch.equal(A.affine_tree_mul(den, dinv, group), one.expand_as(den))
-    out = A.affine_phase3(rows, sgn, dinv, cls, group)
-    assert torch.equal(out, A.affine_phase3_plain(rows, sgn, dinv, cls, group))
-    nxt, _ = A.affine_phase1(out, None, group)
-    assert torch.equal(nxt, A.affine_phase1_plain(out, None, group)[0])
+    one[0] = fields_of(curve)[1].const(1, cuda)
+    assert torch.equal(A.affine_tree_mul(den, dinv, group, curve=curve), one.expand_as(den))
+    out = A.affine_phase3(rows, sgn, dinv, cls, group, curve)
+    assert torch.equal(out, A.affine_phase3_plain(rows, sgn, dinv, cls, group, curve))
+    nxt, _ = A.affine_phase1(out, None, group, curve)
+    assert torch.equal(nxt, A.affine_phase1_plain(out, None, group, curve)[0])
 
 
 @pytest.mark.parametrize("group", ["g1", "g2"])
@@ -257,9 +263,15 @@ def test_bls_curve_kernels_match_plain(cuda, group):
     length = torch.randint(0, 11, (256,), dtype=torch.int32, device=cuda)
     args = (p, table, perm.to(torch.int32), base, start, length, 0, 10, group, BLS12_381)
     assert torch.equal(C.bucket_madd_rows(*args), C.bucket_madd_rows_plain(*args))
-    # the kernels without BLS12-381 instances refuse, on the card too
-    with pytest.raises(NotImplementedError):
-        C.point_double(p, group, BLS12_381)
+    # K5 and K2 without a mask (the device combine), doublings chained
+    d = p
+    for _ in range(3):
+        d2 = C.point_double(d, group, BLS12_381)
+        assert torch.equal(d2, C.point_double_plain(d, group, BLS12_381))
+        d = d2
+    assert C.limbs_to_points(d, group, BLS12_381) == [hc.double(hc.double(hc.double(x))) for x in P]
+    s = C.point_add(p, q, group, BLS12_381)
+    assert torch.equal(s, C.point_add_plain(p, q, group, BLS12_381))
 
 
 def test_bls_msm_matches_host(cuda):
@@ -276,6 +288,27 @@ def test_bls_msm_matches_host(cuda):
         table = torch.as_tensor(C.pack_rows_u8(pool * (n // 16), group, BLS12_381), device=cuda)
         plan = PlaneMsm(c, BLS12_381.fr.num_bits, group, curve=BLS12_381)
         assert plan.msm_host(table, digits, hc) == hc.msm(pool, agg)
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("affine", [False, True])
+def test_bls_device_msm_matches_host(cuda, group, affine):
+    """BLS12-381, 2^14 points, the device combine (K5, K2 unmasked), the
+    scan or the affine tree (K6-K8)."""
+    hc = BLS_HOSTS[group]
+    rng = random.Random(42)
+    c, n = 9, 1 << 14
+    pool = [hc.scalar_mul(hc.generator, rng.randrange(1, BLS_R)) for _ in range(16)]
+    scalars = [rng.randrange(1 << 44) if i % 2 else rng.randrange(BLS_R) for i in range(n)]
+    agg = [0] * 16
+    for i, s in enumerate(scalars):
+        agg[i % 16] = (agg[i % 16] + s) % BLS_R
+    table = torch.as_tensor(C.pack_rows_u8(pool * (n // 16), group, BLS12_381), device=cuda)
+    digits = signed_digits(BLS_FR.tensor(scalars, cuda, mont=False), c, BLS12_381.fr.num_bits)
+    plan = PlaneMsm(c, BLS12_381.fr.num_bits, group, affine=affine, curve=BLS12_381)
+    assert plan.uses_affine(n) == affine
+    got = plan.msm(table, digits)
+    assert C.limbs_to_points(got[None], group, BLS12_381)[0] == hc.msm(pool, agg)
 
 
 def test_bls_prove_small_fixture(cuda):
