@@ -16,7 +16,14 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    MSM bench below (the Horner combine's one lane; level 0 of the affine
    tree at 2^20 points for G1, 2^18 for G2), exact equality; each kernel's
    time (CUDA events, warmed up), its plain version's time and its bound;
-   the kernel line adds each kernel's ptxas registers and spills.
+   the kernel line adds each kernel's ptxas registers and spills. The same
+   phase holds K9 and K10 (the standalone 16-bit-limb products) at 2^20
+   elements of BN254 Fr, the shape of bench_field below, and K11 (the
+   masked mixed add) in G1 and G2 at the lane count of the 2^18 prove's
+   scan, Q decoded from the key's table rows. K11 has no caller in either
+   package, so this phase is its path: the first steps of that scan run
+   step by step through K11 (one launch a step, the launch count of its
+   row) and must equal K1 over the same steps.
 3. prove_fixture: proves the committed MulChain(4, 1023) key
    (`tests/vectors/torch_pk_bn254_mulchain1023.npz`) at its committed
    (r, s); the proof must equal the JAX package's committed proof bit for
@@ -41,8 +48,10 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    BLS12-381 key of prove_full_bls and the BLS12-381 MSM bench's inputs
    are made, and the BLS12-381 instances of K1-K4 (K1 and K2 in G1 and G2
    over the 12-limb Fq, K3 and K4 over BLS12-381 Fr) are held against their
-   plain versions at the shapes of that prove, and those of K5, K2 without
-   a mask and K6-K8 at the shapes of msm_bench_bls, as in phase 2.
+   plain versions at the shapes of that prove, those of K5, K2 without
+   a mask and K6-K8 at the shapes of msm_bench_bls, and K9-K11 as in
+   phase 2 (K9, K10 over BLS12-381 Fr; K11 at the 2^20 prove's 294,912
+   lanes).
 8. prove_fixture_bls: proves the committed BLS12-381 MulChain(7, 12) key
    (`tests/vectors/torch_pk_bls12_381_mulchain12.npz`, m = 26) at its
    committed (r, s); the proof must equal the JAX package's committed
@@ -61,6 +70,11 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    tree, every result equal to the pool oracle. Launch counts of this
    phase go into the kernel line for the BLS12-381 instances of K5-K8 and
    K2 without a mask.
+12. bench_field: `snark_tpu_torch.bench_field.run` at 2^20 elements of
+   BN254 Fr and of BLS12-381 Fr, all five lines (the torch `DeviceField`
+   and `DeviceFieldF32` products, K10, K9, K4 mode 0), each line's ms per
+   mul-batch, M muls/s and peak memory, every output equal to the host
+   oracle. Its launch counts go into the kernel line for K9 and K10.
 
 The last line is `{"ok": true, "device": {...}}`, printed only when every
 phase passed; any failure exits non-zero. No card: exit 1, no result.
@@ -110,6 +124,8 @@ MULS = {
     "dbl_g1": 9,  # RCB15 Alg 9
     "dbl_g2": 9 * 3,
 }
+MIXED_SCAN_STEPS = 4  # scan steps run through K11 in the kernels phases
+BENCH_FIELD_LOG_N = 20
 BENCH_LOG_N = {"g1": 20, "g2": 18}  # the msm_bench sizes
 BENCH_C = 13
 
@@ -319,7 +335,7 @@ def kernel_template(name: str) -> str:
     (`point_add` is K2 without a mask)."""
     bls = "Bls" if "_bls12_381" in name else ""
     base = name.replace("_bls12_381", "")
-    if base in ("ntt_stage", "field_ew"):
+    if base in ("ntt_stage", "field_ew", "mont_mul16", "mont_mul16_limb_major"):
         return f"{base}_kernel<{bls}FrParams>"
     base, group = base.rsplit("_", 1)
     base = "masked_add" if base == "point_add" else base
@@ -380,9 +396,40 @@ def plain_time(fn):
     return out, e0.elapsed_time(e1)
 
 
+def scan_step_operands(tbl, perm, lane_base, start, length, i: int, group: str, curve):
+    """Step i of the bucket scan as K11's operands: each lane's i-th row,
+    decoded to affine limbs (plain torch ops), the digit's sign folded into
+    y, and the mask of lanes whose run reaches step i on a row that is not
+    the identity."""
+    import torch
+
+    from snark_tpu_torch.fields.limbs import fields_of, sub_plain
+    from snark_tpu_torch.ops import curve as C
+
+    idx = (lane_base.to(torch.int64) + start.to(torch.int64) + i).clamp(max=perm.numel() - 1)
+    pay = perm[idx].to(torch.int64) & 0xFFFFFFFF
+    rows = tbl[pay & 0x7FFFFFFF]
+    x2, y2 = C.decode_rows(rows, group, curve)
+    neg = (pay >> 31).bool()[:, None, None]
+    y2 = torch.where(neg, sub_plain(torch.zeros_like(y2), y2, fields_of(curve)[1]), y2).contiguous()
+    mask = (length > i) & (rows[:, C.row_bytes(group, curve) - 1] != 0)
+    return x2, y2, mask
+
+
+def mixed_scan(acc, tbl, perm, lane_base, start, length, k_steps: int, group: str, curve):
+    """The bucket scan's first k_steps run step by step through K11, one
+    launch a step: the function of K1 over the same steps."""
+    from snark_tpu_torch.ops import curve as C
+
+    for i in range(k_steps):
+        x2, y2, mask = scan_step_operands(tbl, perm, lane_base, start, length, i, group, curve)
+        acc = C.masked_mixed_add(acc, x2, y2, mask, group, curve)
+    return acc
+
+
 def phase_kernels(key: SyntheticKey, z_std, device) -> list[dict]:
-    """K1-K4 of the key's curve against their plain versions at its full
-    prove's shapes."""
+    """K1-K4 and K11 of the key's curve against their plain versions at its
+    full prove's shapes, and K9, K10 over its scalar field at bench_field's."""
     import torch
 
     from snark_tpu_torch import _native
@@ -448,7 +495,35 @@ def phase_kernels(key: SyntheticKey, z_std, device) -> list[dict]:
               curve_src, "snark_tpu/ops/pallas_curve.py:716", ms2, pms2, err2,
               active * MULS[f"add_{group}"] * fq_mul,
               plan.lanes * (3 * pt_bytes + 1)))
-        del out, q, o2, ref2, perm, start, length, lane_base, acc0
+        del out, q, o2, ref2
+
+        # K11 on the scan's first step: each lane's first row, decoded
+        x2, y2, mask = scan_step_operands(tbl, perm, lane_base, start, length, 0, group, curve)
+
+        def k11():
+            return C.masked_mixed_add(acc0, x2, y2, mask, group, curve)
+
+        o11 = k11()
+        ms11 = cuda_ms(k11)
+        ref11, pms11 = plain_time(
+            lambda: C.masked_mixed_add_plain(acc0, x2, y2, mask, group, curve))
+        err11 = max_abs_err(o11, ref11)
+        # its path: the first scan steps through K11, equal to K1 over them
+        name11 = _native.counter_name("masked_mixed_add", curve.name, group)
+        _native.reset_launches()
+        stepped = mixed_scan(acc0, tbl, perm, lane_base, start, length, MIXED_SCAN_STEPS,
+                             group, curve)
+        launches11 = _native.LAUNCHES[name11]
+        max_abs_err(stepped, C.bucket_madd_rows(
+            acc0, tbl, perm, lane_base, start, length, 0, MIXED_SCAN_STEPS, group, curve))
+        active = int(mask.sum())
+        el_bytes = pt_bytes // 3
+        row = kernel_row(name11, curve_src, "snark_tpu/ops/pallas_curve.py:729", ms11, pms11,
+                         err11, active * (MULS[f"madd_{group}"] - 2 * C.GROUPS[group]) * fq_mul,
+                         plan.lanes * (2 * pt_bytes + 1) + active * 2 * el_bytes)
+        row["launches"] = launches11
+        rows.append(row)
+        del o11, ref11, stepped, x2, y2, mask, perm, start, length, lane_base, acc0
         torch.cuda.empty_cache()
 
     # K3, K4 at the domain size
@@ -475,6 +550,41 @@ def phase_kernels(key: SyntheticKey, z_std, device) -> list[dict]:
     _, pms4 = plain_time(lambda: N.field_ew_plain("mul", x, y, field=fr))
     rows.append(kernel_row(_native.counter_name("field_ew", curve.name), ntt_src,
           "snark_tpu/ops/ntt_plane.py:197", ms4, pms4, 0, n * IMAD_PER_MUL, n * 96))
+    del x, y, plan
+    rows += phase_kernels_field16(fr, device)
+    return rows
+
+
+def phase_kernels_field16(fr, device) -> list[dict]:
+    """K9 and K10 at bench_field's shape (2^20 elements of the scalar
+    field, its tiled pairs) against their plain version. K10's row times
+    the wrapper, its transposes included, as bench_field does; the kernel
+    alone on limb-major copies is its `kernel_only_ms`."""
+    import torch
+
+    from snark_tpu_torch import _native
+    from snark_tpu_torch import bench_field as BF
+    from snark_tpu_torch.ops import mont16 as M16
+    from snark_tpu_torch.ops.ntt import SCALAR_FIELDS
+
+    a, b = (M16.limbs16_tensor(x, device) for x in BF.inputs(fr.params, BENCH_FIELD_LOG_N))
+    n = a.shape[0]
+    ref, pms = plain_time(lambda: M16.mont_mul16_plain(a, b, fr))
+    rows = []
+    for kernel, fn, src_line in (
+        ("mont_mul16", M16.mont_mul16, "snark_tpu/ops/pallas_field.py:236"),
+        ("mont_mul16_limb_major", M16.mont_mul16_limb_major, "scripts/pallas_field_v2.py:69"),
+    ):
+        err = max_abs_err(fn(a, b, fr), ref)
+        row = kernel_row(_native.counter_name(kernel, SCALAR_FIELDS[fr.params.name]),
+                         "snark_tpu_torch/csrc/field16.cu", src_line, cuda_ms(lambda: fn(a, b, fr)),
+                         pms, err, n * IMAD_PER_MUL, 3 * n * 4 * a.shape[1])
+        rows.append(row)
+    at, bt = a.t().contiguous(), b.t().contiguous()
+    out = torch.empty_like(at)
+    rows[-1]["kernel_only_ms"] = cuda_ms(
+        lambda: M16._launch("mont_mul16_limb_major", fr, at, bt, out, n, M16.DEFAULT_THREADS))
+    max_abs_err(out.t(), ref)
     return rows
 
 
@@ -698,6 +808,25 @@ def phase_msm_bench(inputs: dict, smi: str, unsigned: bool = True) -> tuple[dict
     return {"runs": len(out), "all_correct": True}, total
 
 
+def phase_bench_field(smi: str) -> tuple[dict, dict]:
+    """bench_field's five lines at 2^20 on both scalar fields, each exact
+    against the host oracle. -> (phase info, launch counts per field)."""
+    from snark_tpu_torch import _native
+    from snark_tpu_torch import bench_field as BF
+    from snark_tpu_torch.fields.params import BLS12_381, BN254
+
+    info, launches = {"nvidia_smi": smi}, {}
+    for params in (BN254.fr, BLS12_381.fr):
+        _native.reset_launches()
+        res = BF.run(BENCH_FIELD_LOG_N, field=params)
+        launches.update({k: v for k, v in _native.LAUNCHES.items() if v})
+        if not res["correct"]:
+            bad = [(r["impl"], r["threads"]) for r in res["lines"] if not r["correct"]]
+            raise AssertionError(f"bench_field {params.name}: lines differ from the oracle: {bad}")
+        info[params.name] = res
+    return info, launches
+
+
 def main() -> int:
     import torch
 
@@ -794,15 +923,21 @@ def main() -> int:
     info_bb, bench_launches_bls = phase_msm_bench(inputs_bls, smi, unsigned=False)
     phase_line("msm_bench_bls", t0, **info_bb,
                launches={k: v for k, v in bench_launches_bls.items() if v})
+    del inputs_bls
+    torch.cuda.empty_cache()
 
-    for row in rows:
-        row["launches"] = launches[row["name"]]
-    for row in bls_rows:
-        row["launches"] = launches_bls[row["name"]]
-    for row in msm_rows:
-        row["launches"] = bench_launches[row["name"]]
-    for row in bls_msm_rows:
-        row["launches"] = bench_launches_bls[row["name"]]
+    t0 = time.time()
+    info_f, field_launches = phase_bench_field(smi)
+    phase_line("bench_field", t0, **info_f, launches=field_launches)
+
+    # each row's launches from the run of its path: the prove's, the MSM
+    # bench's, bench_field's for K9 and K10 (K11's were set in its phase)
+    for group, counts in ((rows, launches), (bls_rows, launches_bls),
+                          (msm_rows, bench_launches), (bls_msm_rows, bench_launches_bls)):
+        for row in group:
+            if row["launches"] is None:
+                path = field_launches if row["name"].startswith("mont_mul16") else counts
+                row["launches"] = path.get(row["name"], 0)
     rows = rows + bls_rows + msm_rows + bls_msm_rows
     for row in rows:
         if row["launches"] == 0:

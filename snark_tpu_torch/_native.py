@@ -53,6 +53,11 @@ _SIGNATURES = {
     "snark_affine_tree_mul": [_I, _I, _I, _P, _P, _P, _I, _P],
     # curve, group, rows, row_bytes, sgn, dinv, cls, out, pairs, stream
     "snark_affine_phase3": [_I, _I, _P, _I, _P, _P, _P, _P, _I, _P],
+    # curve, group, p, x2, y2, mask, out, lanes, stream
+    "snark_masked_mixed_add": [_I, _I, _P, _P, _P, _P, _P, _I, _P],
+    # curve (of the scalar field), a, b, out, n, threads per block, stream
+    "snark_mont_mul16": [_I, _P, _P, _P, _I, _I, _P],
+    "snark_mont_mul16_limb_major": [_I, _P, _P, _P, _I, _I, _P],
 }
 
 # The curve code every entry point takes first (csrc/field.cuh), and the
@@ -64,8 +69,11 @@ CURVE_CODES = {"bn254": 0, "bls12_381": 1}
 NOT_PORTED = -1
 _KERNELS = frozenset({
     "bucket_madd_rows", "masked_add", "point_double", "ntt_stage", "field_ew",
-    "affine_phase1", "affine_tree_mul", "affine_phase3",
+    "affine_phase1", "affine_tree_mul", "affine_phase3", "masked_mixed_add",
+    "mont_mul16", "mont_mul16_limb_major",
 })
+# kernels over a scalar field: one counter per curve, not per group
+_SCALAR_KERNELS = ("ntt_stage", "field_ew", "mont_mul16", "mont_mul16_limb_major")
 _PORTED = {"bn254": _KERNELS, "bls12_381": _KERNELS}
 
 
@@ -96,7 +104,7 @@ def _counters() -> dict:
     out = {}
     for curve, kernels in _PORTED.items():
         for k in sorted(kernels):
-            if k in ("ntt_stage", "field_ew"):
+            if k in _SCALAR_KERNELS:
                 out[counter_name(k, curve)] = 0
                 continue
             for g in ("g1", "g2"):

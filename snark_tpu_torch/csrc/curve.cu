@@ -1,7 +1,7 @@
 // Curve kernels of the bucket MSM, for G1 (over Fq) and G2 (over Fq2): the
 // C entry points, and the BN254 instances. The kernels themselves are
 // templates in curve_kernels.cuh; curve_bls.cu compiles the BLS12-381
-// instances of K1, K2 and K5 in a process of its own, and each entry point
+// instances of K1, K2, K5 and K11 in a process of its own, and each entry point
 // takes a curve code (kBn254, kBls12_381) and dispatches on it.
 //
 // K1 bucket_madd_rows replaces snark_tpu/ops/pallas_curve.py
@@ -13,6 +13,15 @@
 //   add of the device Horner combine.
 // K5 point_double replaces snark_tpu/ops/pallas_curve.py make_point_double
 //   (body _double_body, RCB15 Alg 9): the doublings of the Horner combine.
+// K11 masked_mixed_add replaces snark_tpu/ops/pallas_curve.py
+//   make_masked_mixed_add (_make_pointwise with mixed=True, body
+//   _madd_mixed_body, RCB15 Alg 8): mask ? P + (X2, Y2) : P with Q affine,
+//   given as limb arrays. It is K1's step with Q read from (lanes, K, N)
+//   arrays instead of decoded from gathered u8 rows, and the mask as given:
+//   the caller clears it where Q is the identity (affine has no encoding
+//   of it). No path of either package calls the reference; chip_smoke.py
+//   drives K11 as a bucket scan run step by step, one launch a step,
+//   against K1.
 //
 // The formulas, the point layout and the row codec are in curve.cuh.
 //
@@ -31,7 +40,8 @@
 // 205. The BLS12-381 G2 accumulator alone is 72 words, so that kernel
 // spills past the 255-register cap; the build log gives its spill bytes.
 // K2 (14 muls on 192 bytes read and 96 written per BN254 G1 lane) and K5
-// (9 muls on 96 bytes read and 96 written) are bound the same way. The design therefore keeps every lane's
+// (9 muls on 96 bytes read and 96 written) are bound the same way, and so
+// is K11 (13 muls on 96 + 64 bytes read and 96 written per BN254 G1 lane). The design therefore keeps every lane's
 // accumulator in registers for the whole run (one launch runs all k_steps),
 // touches device memory only for the gathered row, and keeps the field core
 // simple; wide-multiply scheduling and batching of the decode are later
@@ -64,6 +74,17 @@ extern "C" int snark_masked_add(int curve, int group, const void* p, const void*
   cudaStream_t s = (cudaStream_t)stream;
   if (curve == kBn254) return launch_masked_add<FqParams>(group, p, q, mask, out, lanes, s);
   if (curve == kBls12_381) return bls_masked_add(group, p, q, mask, out, lanes, s);
+  return kNotPorted;
+}
+
+extern "C" int snark_masked_mixed_add(int curve, int group, const void* p, const void* x2,
+                                      const void* y2, const void* mask, void* out, int lanes,
+                                      void* stream) {
+  if (lanes <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (curve == kBn254)
+    return launch_masked_mixed_add<FqParams>(group, p, x2, y2, mask, out, lanes, s);
+  if (curve == kBls12_381) return bls_masked_mixed_add(group, p, x2, y2, mask, out, lanes, s);
   return kNotPorted;
 }
 

@@ -1,5 +1,5 @@
-// The BLS12-381 instances of K1 bucket_madd_rows, K2 masked_add and K5
-// point_double (G1 over Fq, G2 over Fq2, 12-limb Fq), compiled apart from
+// The BLS12-381 instances of K1 bucket_madd_rows, K2 masked_add, K5
+// point_double and K11 masked_mixed_add (G1 over Fq, G2 over Fq2, 12-limb Fq), compiled apart from
 // curve.cu so that the two run as separate nvcc processes; curve.cu's entry
 // points call these launchers for the kBls12_381 curve code. What the
 // kernels replace and what bounds them is in curve.cu.
@@ -23,6 +23,11 @@ int bls_masked_add(int group, const void* p, const void* q, const void* mask, vo
 
 int bls_point_double(int group, const void* p, void* out, int lanes, cudaStream_t s) {
   return launch_point_double<BlsFqParams>(group, p, out, lanes, s);
+}
+
+int bls_masked_mixed_add(int group, const void* p, const void* x2, const void* y2,
+                         const void* mask, void* out, int lanes, cudaStream_t s) {
+  return launch_masked_mixed_add<BlsFqParams>(group, p, x2, y2, mask, out, lanes, s);
 }
 
 }  // namespace snark

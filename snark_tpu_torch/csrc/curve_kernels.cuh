@@ -1,4 +1,4 @@
-// The curve kernels K1, K2 and K5 as templates over the base field's
+// The curve kernels K1, K2, K5 and K11 as templates over the base field's
 // params, with one host launcher each. curve.cu instantiates them for
 // BN254 and curve_bls.cu for BLS12-381, each in its own nvcc process.
 // See curve.cu for what they replace and what bounds them.
@@ -48,6 +48,23 @@ __global__ void masked_add_kernel(const uint32_t* __restrict__ p,
   store_point<E>(out + (size_t)l * LW, a);
 }
 
+// K11: mask ? p + (x2, y2) : p, q = (x2, y2) affine and not the identity
+// where the mask is set (the caller's duty, as for the reference).
+template <class E>
+__global__ void masked_mixed_add_kernel(const uint32_t* __restrict__ p,
+                                        const uint32_t* __restrict__ x2,
+                                        const uint32_t* __restrict__ y2,
+                                        const uint8_t* __restrict__ mask,
+                                        uint32_t* __restrict__ out, int lanes) {
+  constexpr int W = Curve<E>::W;
+  const int l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= lanes) return;
+  Point<E> a = load_point<E>(p + (size_t)l * 3 * W);
+  if (mask[l])
+    a = madd(a, Curve<E>::load(x2 + (size_t)l * W), Curve<E>::load(y2 + (size_t)l * W));
+  store_point<E>(out + (size_t)l * 3 * W, a);
+}
+
 template <class E>
 __global__ void point_double_kernel(const uint32_t* __restrict__ p,
                                     uint32_t* __restrict__ out, int lanes) {
@@ -94,6 +111,21 @@ int launch_masked_add(int group, const void* p, const void* q, const void* mask,
 }
 
 template <class P>
+int launch_masked_mixed_add(int group, const void* p, const void* x2, const void* y2,
+                            const void* mask, void* out, int lanes, cudaStream_t s) {
+  auto run = [&](auto kernel) {
+    kernel<<<curve_grid(lanes), kCurveBlock, 0, s>>>(
+        (const uint32_t*)p, (const uint32_t*)x2, (const uint32_t*)y2, (const uint8_t*)mask,
+        (uint32_t*)out, lanes);
+  };
+  if (group == 1)
+    run(masked_mixed_add_kernel<Fp<P>>);
+  else
+    run(masked_mixed_add_kernel<Fp2<P>>);
+  return (int)cudaGetLastError();
+}
+
+template <class P>
 int launch_point_double(int group, const void* p, void* out, int lanes, cudaStream_t s) {
   if (group == 1)
     point_double_kernel<Fp<P>><<<curve_grid(lanes), kCurveBlock, 0, s>>>(
@@ -112,5 +144,7 @@ int bls_bucket_madd_rows(int group, const void* acc_in, void* acc_out, const voi
 int bls_masked_add(int group, const void* p, const void* q, const void* mask, void* out,
                    int lanes, cudaStream_t s);
 int bls_point_double(int group, const void* p, void* out, int lanes, cudaStream_t s);
+int bls_masked_mixed_add(int group, const void* p, const void* x2, const void* y2,
+                         const void* mask, void* out, int lanes, cudaStream_t s);
 
 }  // namespace snark

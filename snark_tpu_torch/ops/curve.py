@@ -1,6 +1,6 @@
 """Curve kernels K1 (`bucket_madd_rows`), K2 (`masked_add`, and
-`point_add`: K2 with no mask) and K5 (`point_double`), their plain PyTorch
-versions, and the codecs between host points, the reference's u8 row
+`point_add`: K2 with no mask), K5 (`point_double`) and K11
+(`masked_mixed_add`), their plain PyTorch versions, and the codecs between host points, the reference's u8 row
 tables and the port's projective limb tensors, for BN254 and BLS12-381
 (every function takes the curve, BN254 by default).
 
@@ -301,6 +301,24 @@ def bucket_madd_rows_plain(
     return from_words(out)
 
 
+def decode_rows(rows: torch.Tensor, group: str, curve: CurveParams = BN254):
+    """(M, row_bytes) uint8 rows -> affine (x, y), each (M, K, L) int32
+    limbs in the port's format (plain torch ops, on the rows' device). An
+    identity row decodes to (0, 1), which no kernel may add."""
+    qx, qy = _PlainCurve(group, rows.device, curve).decode_rows(rows)
+    return from_words(qx).contiguous(), from_words(qy).contiguous()
+
+
+def masked_mixed_add_plain(p, x2, y2, mask, group: str, curve: CurveParams = BN254) -> torch.Tensor:
+    """Plain version of K11."""
+    pc = _PlainCurve(group, p.device, curve)
+    out = _words(p).clone()
+    lanes = torch.nonzero(mask).flatten()
+    if lanes.numel():
+        out[lanes] = pc.madd(out[lanes], _words(x2[lanes]), _words(y2[lanes]))
+    return from_words(out)
+
+
 def masked_add_plain(p, q, mask, group: str, curve: CurveParams = BN254) -> torch.Tensor:
     """Plain version of K2."""
     pc = _PlainCurve(group, p.device, curve)
@@ -400,6 +418,33 @@ def masked_add(
     _launch(
         "masked_add", "masked_add", curve, group,
         p.data_ptr(), q.data_ptr(), mask.data_ptr(), out.data_ptr(), lanes,
+    )
+    return out
+
+
+def masked_mixed_add(
+    p: torch.Tensor, x2: torch.Tensor, y2: torch.Tensor, mask: torch.Tensor,
+    group: str = "g1", curve: CurveParams = BN254,
+) -> torch.Tensor:
+    """K11: mask ? p + (x2, y2) : p per lane (RCB15 Alg 8, complete mixed
+    add). p is projective (lanes, 3, K, L), Q = (x2, y2) affine, each
+    (lanes, K, L), mask (lanes,) bool. The caller clears the mask wherever
+    Q is the identity, which affine coordinates cannot encode. The
+    counterpart of `snark_tpu/ops/pallas_curve.py` `make_masked_mixed_add`."""
+    _native.require_ported("masked_mixed_add", curve.name)
+    lanes = _check_points(p, group, "p", curve)
+    K, L = GROUPS[group], limbs_of(curve)
+    for name, t in (("x2", x2), ("y2", y2)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (lanes, K, L):
+            raise ValueError(f"{name}: want int32 ({lanes}, {K}, {L}), got {t.dtype} {tuple(t.shape)}")
+    _check_vec(mask, lanes, "mask", torch.bool)
+    if p.device.type == "cpu":
+        return masked_mixed_add_plain(p, x2, y2, mask, group, curve)
+    _native.require_cuda(p, x2, y2, mask)
+    out = torch.empty_like(p)
+    _launch(
+        "masked_mixed_add", "masked_mixed_add", curve, group,
+        p.data_ptr(), x2.data_ptr(), y2.data_ptr(), mask.data_ptr(), out.data_ptr(), lanes,
     )
     return out
 

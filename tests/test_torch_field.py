@@ -191,7 +191,12 @@ def _port_sources():
 
 def test_port_imports_no_jax():
     """No module of the port, and not chip_smoke.py, imports jax or the
-    JAX package."""
+    JAX package; the walk reaches every module, the field layer, K9-K11
+    and bench_field among them."""
+    walked = {os.path.relpath(path, ROOT) for path in _port_sources()}
+    for mod in ("fields/device.py", "fields/device_f32.py", "ops/mont16.py", "ops/curve.py",
+                "bench_field.py"):
+        assert os.path.join("snark_tpu_torch", mod) in walked, mod
     bad = []
     for path in _port_sources():
         with open(path) as fh:

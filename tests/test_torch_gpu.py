@@ -15,7 +15,7 @@ import random
 import pytest
 import torch
 
-from snark_tpu_torch import _native
+from snark_tpu_torch import _native, bench_field
 from snark_tpu_torch.fields.limbs import BLS_FR, FR, fields_of
 from snark_tpu_torch.fields.params import BLS12_381, BN254
 from snark_tpu_torch.groth16 import Groth16, ProvingKey
@@ -23,6 +23,7 @@ from snark_tpu_torch.models import MulChainCircuit
 from snark_tpu_torch.ops import curve as C
 from snark_tpu_torch.ops import ntt as N
 from snark_tpu_torch.ops.curve_host import host_g1, host_g2
+from snark_tpu_torch.ops import mont16 as M16
 from snark_tpu_torch.ops import msm_affine as A
 from snark_tpu_torch.ops.msm import signed_digits, unsigned_digits
 from snark_tpu_torch.ops.msm_plane import PlaneMsm
@@ -327,3 +328,53 @@ def test_bls_prove_small_fixture(cuda):
               "masked_add_bls12_381_g1", "masked_add_bls12_381_g2",
               "ntt_stage_bls12_381", "field_ew_bls12_381"):
         assert _native.LAUNCHES[k] > 0, k
+
+
+@pytest.mark.parametrize("field", [FR, BLS_FR], ids=["bn254_fr", "bls12_381_fr"])
+def test_mont16_kernels_match_plain(cuda, field):
+    """K9 and K10 against their plain version, with the edges 0, 1, p − 1
+    and all-0xFFFF limbs below p, at block sizes that leave ragged ends."""
+    rng = random.Random(21)
+    p = field.p
+    vals = [0, 1, p - 1, (1 << 240) - 1] + [rng.randrange(p) for _ in range(5000)]
+    a = M16.unpack_words(field.tensor(vals, cuda).to(torch.int64) & 0xFFFFFFFF)
+    b = M16.unpack_words(field.tensor(vals[::-1], cuda).to(torch.int64) & 0xFFFFFFFF)
+    want = M16.mont_mul16_plain(a, b, field)
+    for threads in (64, 256, 1024):
+        assert torch.equal(M16.mont_mul16(a, b, field, threads), want)
+        assert torch.equal(M16.mont_mul16_limb_major(a, b, field, threads), want)
+    got = field.decode(M16.pack_words(want).to(torch.int32))
+    assert got == [x * y % p for x, y in zip(vals, vals[::-1])]
+
+
+@pytest.mark.parametrize("curve", [BN254, BLS12_381], ids=["bn254", "bls12_381"])
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_masked_mixed_add_matches_plain(cuda, group, curve):
+    """K11 against its plain version and the host curve: doubling, inverse
+    and identity P among random pairs, the mask clear where Q is absent."""
+    hc = (host_g1 if group == "g1" else host_g2)(curve)
+    r = curve.fr.modulus
+    rng = random.Random(9)
+    pool = [hc.scalar_mul(hc.generator, rng.randrange(1, r)) for _ in range(15)]
+    P = [pool[i % 15] for i in range(300)]
+    Q = [pool[(7 * i + 2) % 15] for i in range(300)]
+    P[3] = None
+    Q[:2] = [P[0], hc.neg(P[1])]
+    p = C.points_to_limbs(P, group, cuda, curve)
+    q = C.points_to_limbs(Q, group, cuda, curve)
+    mask = torch.rand(300, device=cuda) < 0.7
+    mask[:4] = True
+    x2, y2 = q[:, 0].contiguous(), q[:, 1].contiguous()
+    got = C.masked_mixed_add(p, x2, y2, mask, group, curve)
+    assert torch.equal(got, C.masked_mixed_add_plain(p, x2, y2, mask, group, curve))
+    assert C.limbs_to_points(got, group, curve) == [
+        hc.add(a, b) if m else a for a, b, m in zip(P, Q, mask.tolist())
+    ]
+
+
+@pytest.mark.parametrize("field", [BN254.fr, BLS12_381.fr], ids=["bn254_fr", "bls12_381_fr"])
+def test_bench_field_lines_exact(cuda, field):
+    """All five bench_field lines at 2^12 equal the host oracle."""
+    res = bench_field.run(12, field=field, device=cuda, iters=1)
+    assert res["correct"], [(rec["impl"], rec["threads"]) for rec in res["lines"] if not rec["correct"]]
+    assert len(res["lines"]) == 3 + 2 * len(bench_field.THREADS)
