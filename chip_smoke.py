@@ -75,6 +75,17 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    and `DeviceFieldF32` products, K10, K9, K4 mode 0), each line's ms per
    mul-batch, M muls/s and peak memory, every output equal to the host
    oracle. Its launch counts go into the kernel line for K9 and K10.
+13. bench_vpu_peak: `snark_tpu_torch.bench_vpu_peak.run` at the script's
+   shapes (R8 = 34 planes of BN254 Fq on 131,072 lanes; the madd line's
+   81,920 lanes through K1), its five lines each checked against the plain
+   version on the card and the host references. Its launch counts go into
+   the kernel line for K12-K15 (K1's stays the prove's); then K12-K15 are
+   held against their plain versions at the lines' shapes: K13 and K15
+   exactly, K12 within rtol 1e-4, K14 within rtol 1e-5 at depth 4 and
+   within rtol 1e-4 plus 8·2^-149 at the line's depth 8, where every
+   value is subnormal (the row records the largest). The build line counts
+   the SASS opcodes of K12-K15 (`cuobjdump -sass`), where the toolkit has
+   cuobjdump.
 
 The last line is `{"ok": true, "device": {...}}`, printed only when every
 phase passed; any failure exits non-zero. No card: exit 1, no result.
@@ -128,6 +139,7 @@ MIXED_SCAN_STEPS = 4  # scan steps run through K11 in the kernels phases
 BENCH_FIELD_LOG_N = 20
 BENCH_LOG_N = {"g1": 20, "g2": 18}  # the msm_bench sizes
 BENCH_C = 13
+VPU_KERNELS = ("fma_chain", "sweep_chain", "conv_chain", "mont_mul_chain")
 
 
 def phase_line(name: str, t0: float, **info) -> None:
@@ -335,6 +347,8 @@ def kernel_template(name: str) -> str:
     (`point_add` is K2 without a mask)."""
     bls = "Bls" if "_bls12_381" in name else ""
     base = name.replace("_bls12_381", "")
+    if base in VPU_KERNELS:
+        return f"{base}_kernel"
     if base in ("ntt_stage", "field_ew", "mont_mul16", "mont_mul16_limb_major"):
         return f"{base}_kernel<{bls}FrParams>"
     base, group = base.rsplit("_", 1)
@@ -361,7 +375,29 @@ def phase_build() -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             funcs[name]["registers"] = int(m.group(1))
-    return {"nvcc_seconds": round(res.seconds, 3), "built": res.built, "ptxas": funcs}
+    return {"nvcc_seconds": round(res.seconds, 3), "built": res.built, "ptxas": funcs,
+            "sass": sass_mix(res.path, _native._nvcc())}
+
+
+def sass_mix(lib: str, nvcc: str) -> dict | str:
+    """Static SASS opcode counts of K12-K15 in the built library, from
+    `cuobjdump -sass` beside nvcc (a note instead where it is missing)."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if not os.path.isfile(tool):
+        return f"no cuobjdump beside {nvcc}"
+    out = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=300)
+    mix, name = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            short = short_name(m.group(1))
+            name = short if short.removesuffix("_kernel") in VPU_KERNELS else None
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and name:
+            counts = mix.setdefault(name, {})
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return {k: dict(sorted(v.items(), key=lambda kv: -kv[1])) for k, v in mix.items()}
 
 
 def kernel_row(name, source, replaces, ms, plain_ms, err, imads, nbytes) -> dict:
@@ -372,6 +408,16 @@ def kernel_row(name, source, replaces, ms, plain_ms, err, imads, nbytes) -> dict
         "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b, "bound_by": by, "library_ms": None,
     }
+
+
+def float_err(a, b, rtol: float, atol: float) -> float:
+    """Float kernels and plain versions agree within rtol and atol: the
+    largest absolute difference, or fail."""
+    import torch
+
+    if not torch.allclose(a, b, rtol=rtol, atol=atol):
+        raise AssertionError(f"kernel and plain version differ beyond rtol {rtol}, atol {atol}")
+    return float((a - b).abs().max())
 
 
 def max_abs_err(a, b) -> int:
@@ -827,6 +873,64 @@ def phase_bench_field(smi: str) -> tuple[dict, dict]:
     return info, launches
 
 
+def phase_bench_vpu_peak(smi: str, device) -> tuple[dict, list[dict]]:
+    """bench_vpu_peak's five lines at the script's shapes, every line
+    correct; then K12-K15 against their plain versions at the lines' shapes,
+    each row's launches from the bench run. -> (phase info, kernel rows)."""
+    import torch
+
+    from snark_tpu_torch import _native
+    from snark_tpu_torch import bench_vpu_peak as BV
+    from snark_tpu_torch.ops import vpu_peak as V
+
+    _native.reset_launches()
+    res = BV.run()
+    launches = {k: v for k, v in _native.LAUNCHES.items() if v}
+    if not res["correct"]:
+        bad = [rec["line"] for rec in res["lines"] if not rec["correct"]]
+        raise AssertionError(f"bench_vpu_peak: lines not correct: {bad}")
+    lines = {rec["line"]: rec for rec in res["lines"]}
+    a, b = (torch.from_numpy(x).to(device) for x in BV.float_inputs(BV.LANES, BV.SEED))
+    am, bm = BV.mont_inputs(BV.LANES, device)
+    R = BV.REPS
+    conv4 = BV.CONV_CHECK_REPS
+    src = "snark_tpu_torch/csrc/vpu_peak.cu"
+    rows = []
+    for line, kernel, fn, plain, tol, replaces in (
+        ("fma", "fma_chain", lambda: V.fma_chain(a, b, R["fma"]),
+         lambda: V.fma_chain_plain(a, b, R["fma"]), (BV.FMA_RTOL, 0.0),
+         "scripts/bench_vpu_peak.py:75"),
+        ("sweep", "sweep_chain", lambda: V.sweep_chain(a, R["sweep"]),
+         lambda: V.sweep_chain_plain(a, R["sweep"]), None, "scripts/bench_vpu_peak.py:100"),
+        ("conv", "conv_chain", lambda: V.conv_chain(a, b, R["conv"]),
+         lambda: V.conv_chain_plain(a, b, R["conv"]), (BV.CONV_RTOL_DEEP, BV.CONV_ATOL_DEEP),
+         "scripts/bench_vpu_peak.py:128"),
+        ("mont_mul", "mont_mul_chain", lambda: V.mont_mul_chain(am, bm, R["mont_mul"]),
+         lambda: V.mont_mul_chain_plain(am, bm, R["mont_mul"]), None,
+         "scripts/bench_vpu_peak.py:159"),
+    ):
+        out = fn()
+        ref, pms = plain_time(plain)
+        err = max_abs_err(out, ref) if tol is None else float_err(out, ref, *tol)
+        rec = lines[line]
+        row = {
+            "name": kernel, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches.get(kernel, 0), "max_abs_err": err, "ms": cuda_ms(fn),
+            "plain_ms": pms, "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None, "reps": rec["reps"], "lanes": rec["lanes"],
+            "tolerance": "exact" if tol is None else {"rtol": tol[0], "atol": tol[1]},
+        }
+        if line == "conv":  # depth 8 all subnormal; depth 4 every value still normal
+            row["max_abs_value"] = float(ref.abs().max())
+            row["max_abs_err_depth4"] = float_err(
+                V.conv_chain(a, b, conv4), V.conv_chain_plain(a, b, conv4), BV.CONV_RTOL, 0.0)
+        rows.append(row)
+        del out, ref
+    info = {"nvidia_smi": smi, "lanes": res["lanes"], "madd_lanes": res["madd_lanes"],
+            "threads": res["threads"], "lines": res["lines"], "launches": launches}
+    return info, rows
+
+
 def main() -> int:
     import torch
 
@@ -930,15 +1034,20 @@ def main() -> int:
     info_f, field_launches = phase_bench_field(smi)
     phase_line("bench_field", t0, **info_f, launches=field_launches)
 
+    t0 = time.time()
+    info_v, vpu_rows = phase_bench_vpu_peak(smi, device)
+    phase_line("bench_vpu_peak", t0, **info_v)
+
     # each row's launches from the run of its path: the prove's, the MSM
-    # bench's, bench_field's for K9 and K10 (K11's were set in its phase)
+    # bench's, bench_field's for K9 and K10 (K11's and K12-K15's were set
+    # in their phases)
     for group, counts in ((rows, launches), (bls_rows, launches_bls),
                           (msm_rows, bench_launches), (bls_msm_rows, bench_launches_bls)):
         for row in group:
             if row["launches"] is None:
                 path = field_launches if row["name"].startswith("mont_mul16") else counts
                 row["launches"] = path.get(row["name"], 0)
-    rows = rows + bls_rows + msm_rows + bls_msm_rows
+    rows = rows + bls_rows + msm_rows + bls_msm_rows + vpu_rows
     for row in rows:
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} was not launched on the main path")

@@ -58,13 +58,23 @@ _SIGNATURES = {
     # curve (of the scalar field), a, b, out, n, threads per block, stream
     "snark_mont_mul16": [_I, _P, _P, _P, _I, _I, _P],
     "snark_mont_mul16_limb_major": [_I, _P, _P, _P, _I, _I, _P],
+    # the roofline kernels (csrc/vpu_peak.cu), over no field:
+    # a, b, out, elements, reps, threads per block, stream
+    "snark_fma_chain": [_P, _P, _P, _I, _I, _I, _P],
+    # in, out, lanes, reps, threads, stream
+    "snark_sweep_chain": [_P, _P, _I, _I, _I, _P],
+    # a, b, out, lanes, reps, threads, stream
+    "snark_conv_chain": [_P, _P, _P, _I, _I, _I, _P],
+    "snark_mont_mul_chain": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 # The curve code every entry point takes first (csrc/field.cuh), and the
 # kernels each curve has instances of (every kernel, on both curves). An
 # entry point returns NOT_PORTED for a curve it has no instance for; the
 # wrappers refuse such a call before it reaches the library
-# (`require_ported`).
+# (`require_ported`). The roofline kernels K12-K15 take no curve: K12-K14
+# work on plain floats and K15 is compiled for BN254 Fq alone
+# (`_FREE_KERNELS`).
 CURVE_CODES = {"bn254": 0, "bls12_381": 1}
 NOT_PORTED = -1
 _KERNELS = frozenset({
@@ -75,6 +85,7 @@ _KERNELS = frozenset({
 # kernels over a scalar field: one counter per curve, not per group
 _SCALAR_KERNELS = ("ntt_stage", "field_ew", "mont_mul16", "mont_mul16_limb_major")
 _PORTED = {"bn254": _KERNELS, "bls12_381": _KERNELS}
+_FREE_KERNELS = ("fma_chain", "sweep_chain", "conv_chain", "mont_mul_chain")
 
 
 def counter_name(kernel: str, curve: str, group: str | None = None) -> str:
@@ -98,10 +109,11 @@ def require_ported(kernel: str, curve: str) -> None:
 
 
 def _counters() -> dict:
-    """Launch counts, one per kernel instance (the curve kernels per group):
-    each wrapper adds one where it launches. `point_add` is K2 launched
-    without a mask by its own wrapper."""
-    out = {}
+    """Launch counts, one per kernel instance (the curve kernels per group,
+    the curve-free kernels by name alone): each wrapper adds one where it
+    launches. `point_add` is K2 launched without a mask by its own
+    wrapper."""
+    out = dict.fromkeys(_FREE_KERNELS, 0)
     for curve, kernels in _PORTED.items():
         for k in sorted(kernels):
             if k in _SCALAR_KERNELS:
@@ -223,8 +235,8 @@ def _library() -> ctypes.CDLL:
 
 def launch(kernel: str, counter: str, *args) -> None:
     """Call `snark_<kernel>` on the current stream (args begin with the
-    curve code), add one to LAUNCHES[counter] and raise if the launch was
-    refused."""
+    curve code, but for the curve-free kernels), add one to
+    LAUNCHES[counter] and raise if the launch was refused."""
     fn = getattr(_library(), "snark_" + kernel)
     code = fn(*args, torch.cuda.current_stream().cuda_stream)
     LAUNCHES[counter] += 1

@@ -191,11 +191,12 @@ def _port_sources():
 
 def test_port_imports_no_jax():
     """No module of the port, and not chip_smoke.py, imports jax or the
-    JAX package; the walk reaches every module, the field layer, K9-K11
-    and bench_field among them."""
+    JAX package; the walk reaches every module, the field layer, K9-K15,
+    bench_field and bench_vpu_peak among them."""
     walked = {os.path.relpath(path, ROOT) for path in _port_sources()}
     for mod in ("fields/device.py", "fields/device_f32.py", "ops/mont16.py", "ops/curve.py",
-                "bench_field.py"):
+                "bench_field.py", "ops/plane_field_v3.py", "ops/vpu_peak.py",
+                "bench_vpu_peak.py"):
         assert os.path.join("snark_tpu_torch", mod) in walked, mod
     bad = []
     for path in _port_sources():

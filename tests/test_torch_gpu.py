@@ -15,7 +15,7 @@ import random
 import pytest
 import torch
 
-from snark_tpu_torch import _native, bench_field
+from snark_tpu_torch import _native, bench_field, bench_vpu_peak
 from snark_tpu_torch.fields.limbs import BLS_FR, FR, fields_of
 from snark_tpu_torch.fields.params import BLS12_381, BN254
 from snark_tpu_torch.groth16 import Groth16, ProvingKey
@@ -25,6 +25,7 @@ from snark_tpu_torch.ops import ntt as N
 from snark_tpu_torch.ops.curve_host import host_g1, host_g2
 from snark_tpu_torch.ops import mont16 as M16
 from snark_tpu_torch.ops import msm_affine as A
+from snark_tpu_torch.ops import vpu_peak as VP
 from snark_tpu_torch.ops.msm import signed_digits, unsigned_digits
 from snark_tpu_torch.ops.msm_plane import PlaneMsm
 from snark_tpu_torch.snark import serialize as ser
@@ -378,3 +379,49 @@ def test_bench_field_lines_exact(cuda, field):
     res = bench_field.run(12, field=field, device=cuda, iters=1)
     assert res["correct"], [(rec["impl"], rec["threads"]) for rec in res["lines"] if not rec["correct"]]
     assert len(res["lines"]) == 3 + 2 * len(bench_field.THREADS)
+
+
+def test_vpu_peak_kernels_match_plain(cuda):
+    """K12-K15 against their plain versions at a lane count that leaves
+    ragged blocks (and K12 a ragged float4 end), at two block sizes: K13
+    and K15 exact, K12 within rtol 1e-4 (one rounding a step against two),
+    K14 within rtol 1e-5 at depth 4 and within rtol 1e-4 plus 8·2^-149 at
+    depth 8 (all subnormal there, and kept so on the card). K15 runs lazy inputs (digits up to 510) and must
+    also equal a·b^32 on the host."""
+    lanes = 999
+    a_np, b_np = bench_vpu_peak.float_inputs(lanes, 1)
+    a, b = (torch.from_numpy(x).to(cuda) for x in (a_np, b_np))
+    pf = VP.plane_field()
+    q = BN254.fq.modulus
+    rng = random.Random(3)
+    va, vb = ([rng.randrange(q) for _ in range(lanes)] for _ in range(2))
+    am = torch.from_numpy(pf.pack_np(va) + pf.P2_COL).to(cuda).contiguous()
+    bm = torch.from_numpy(pf.pack_np(vb)).to(cuda).contiguous()
+    _native.reset_launches()
+    for threads in (64, 256):
+        assert torch.allclose(VP.fma_chain(a, b, 256, threads), VP.fma_chain_plain(a, b, 256),
+                              rtol=1e-4, atol=0)
+        assert torch.equal(VP.sweep_chain(a, 64, threads), VP.sweep_chain_plain(a, 64))
+        assert torch.allclose(VP.conv_chain(a, b, 4, threads), VP.conv_chain_plain(a, b, 4),
+                              rtol=1e-5, atol=0)
+        deep = VP.conv_chain_plain(a, b, 8)
+        assert 2.0**-140 < float(deep.abs().max()) < 2.0**-126
+        assert torch.allclose(VP.conv_chain(a, b, 8, threads), deep,
+                              rtol=bench_vpu_peak.CONV_RTOL_DEEP,
+                              atol=bench_vpu_peak.CONV_ATOL_DEEP)
+        got = VP.mont_mul_chain(am, bm, 32, threads=threads)
+        assert torch.equal(got, VP.mont_mul_chain_plain(am, bm, 32))
+    assert pf.unpack_np(got) == [x * pow(y, 32, q) % q for x, y in zip(va, vb)]
+    for k in ("fma_chain", "sweep_chain", "conv_chain", "mont_mul_chain"):
+        assert _native.LAUNCHES[k] == 2 * (2 if k == "conv_chain" else 1), k
+    x = torch.zeros(34 * 998 + 1, device=cuda)[1:].view(34, 998)  # 4 bytes off alignment
+    with pytest.raises(ValueError):
+        VP.fma_chain(x, x, 1)
+
+
+def test_bench_vpu_peak_lines_correct(cuda):
+    """All five bench_vpu_peak lines at a small size, checked against the
+    plain versions on the card and the host references."""
+    res = bench_vpu_peak.run(lanes=4096, device=cuda, iters=1)
+    assert res["correct"], [rec["line"] for rec in res["lines"] if not rec["correct"]]
+    assert all(rec["ms"] > 0 for rec in res["lines"])
