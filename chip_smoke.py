@@ -84,8 +84,21 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    exactly, K12 within rtol 1e-4, K14 within rtol 1e-5 at depth 4 and
    within rtol 1e-4 plus 8·2^-149 at the line's depth 8, where every
    value is subnormal (the row records the largest). The build line counts
-   the SASS opcodes of K12-K15 (`cuobjdump -sass`), where the toolkit has
+   the SASS opcodes of K12-K17 (`cuobjdump -sass`), where the toolkit has
    cuobjdump.
+14. bench_reduce_parts: `snark_tpu_torch.bench_reduce_parts.run` at the
+   script's shapes (the same planes; variants A, B, C at T = 512 and A, C
+   at T = 2048, 8 deep), every line correct: equal to its plain version,
+   A and C equal to each other, to K15's plain chain and to a·b^8 on the
+   host, B's values mod R to the host recurrence. Its launch counts go into
+   the kernel line for K16, one row a line, each held against its plain
+   version exactly; K16 A's SASS must hold HMMA (its band products on the
+   tensor cores), where the toolkit has cuobjdump.
+15. bench_bisect_mul: `snark_tpu_torch.bench_bisect_mul.run` at the
+   script's shapes (T = 512, 8 deep), its six lines correct: equal to
+   their plain versions bit for bit and to host references. Its launch
+   counts go into the kernel line for K17, one row a kind, each held
+   against its plain version exactly.
 
 The last line is `{"ok": true, "device": {...}}`, printed only when every
 phase passed; any failure exits non-zero. No card: exit 1, no result.
@@ -140,6 +153,7 @@ BENCH_FIELD_LOG_N = 20
 BENCH_LOG_N = {"g1": 20, "g2": 18}  # the msm_bench sizes
 BENCH_C = 13
 VPU_KERNELS = ("fma_chain", "sweep_chain", "conv_chain", "mont_mul_chain")
+PARTS_KERNELS = ("reduce_parts_chain", "bisect_chain")
 
 
 def phase_line(name: str, t0: float, **info) -> None:
@@ -325,11 +339,16 @@ class SyntheticKey:
 
 def short_name(mangled: str) -> str:
     """`_ZN5snark23bucket_madd_rows_kernelINS_3Fp2INS_11BlsFqParamsEEEE...`
-    -> `bucket_madd_rows_kernel<Fp2<BlsFqParams>>`."""
+    -> `bucket_madd_rows_kernel<Fp2<BlsFqParams>>`; an int template
+    argument is kept: `_ZN5snark18sweep_chain_kernelILi34EEE...` ->
+    `sweep_chain_kernel<34>`."""
     m = re.match(r"_ZN5snark(\d+)", mangled)
     if not m:
         return mangled
     name = mangled[m.end() : m.end() + int(m.group(1))]
+    arg = re.match(r"ILi(\d+)E", mangled[m.end() + int(m.group(1)) :])
+    if arg:
+        return f"{name}<{arg.group(1)}>"
     params = re.search(r"(BlsFqParams|BlsFrParams|FqParams|FrParams)", mangled)
     if not params:
         return name
@@ -345,8 +364,16 @@ def kernel_template(name: str) -> str:
     """A kernel line's name -> its template in the ptxas report:
     `bucket_madd_rows_bls12_381_g2` -> `bucket_madd_rows_kernel<Fp2<BlsFqParams>>`
     (`point_add` is K2 without a mask)."""
+    from snark_tpu_torch.ops import mul_parts as MP
+    from snark_tpu_torch.ops import vpu_peak as V
+
+    for kernel, kinds in zip(PARTS_KERNELS, (MP.PARTS_KINDS, MP.BISECT_KINDS)):
+        if name.startswith(kernel + "_"):  # reduce_parts_chain_A_512, bisect_chain_conv0
+            return f"{kernel}_kernel<{kinds.index(name[len(kernel) + 1 :].split('_')[0])}>"
     bls = "Bls" if "_bls12_381" in name else ""
     base = name.replace("_bls12_381", "")
+    if base in ("sweep_chain", "conv_chain"):
+        return f"{base}_kernel<{V.ROWS}>"
     if base in VPU_KERNELS:
         return f"{base}_kernel"
     if base in ("ntt_stage", "field_ew", "mont_mul16", "mont_mul16_limb_major"):
@@ -380,7 +407,7 @@ def phase_build() -> dict:
 
 
 def sass_mix(lib: str, nvcc: str) -> dict | str:
-    """Static SASS opcode counts of K12-K15 in the built library, from
+    """Static SASS opcode counts of K12-K17 in the built library, from
     `cuobjdump -sass` beside nvcc (a note instead where it is missing)."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     if not os.path.isfile(tool):
@@ -391,7 +418,8 @@ def sass_mix(lib: str, nvcc: str) -> dict | str:
         m = re.search(r"Function : (\S+)", line)
         if m:
             short = short_name(m.group(1))
-            name = short if short.removesuffix("_kernel") in VPU_KERNELS else None
+            base = short.split("<")[0].removesuffix("_kernel")
+            name = short if base in VPU_KERNELS + PARTS_KERNELS else None
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
         if m and name:
@@ -931,6 +959,88 @@ def phase_bench_vpu_peak(smi: str, device) -> tuple[dict, list[dict]]:
     return info, rows
 
 
+def bench_rows(res: dict, launches: dict, fns: dict, source: str, replaces: str) -> list[dict]:
+    """One kernel row for each line of a decomposition bench: the kernel
+    (fns[line] = (kernel call, plain call)) against its plain version,
+    exactly, at the line's shape; launches from the bench run."""
+    rows = []
+    for rec in res["lines"]:
+        fn, plain = fns[rec["line"]]
+        out = fn()
+        ref, pms = plain_time(plain)
+        rows.append({
+            "name": rec["kernel"], "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches.get(rec["kernel"], 0), "max_abs_err": max_abs_err(out, ref),
+            "ms": cuda_ms(fn), "plain_ms": pms, "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None, "reps": rec["reps"],
+            "lanes": rec["lanes"], "tolerance": "exact",
+        })
+        del out, ref
+    return rows
+
+
+def phase_bench_reduce_parts(smi: str, device, sass) -> tuple[dict, list[dict]]:
+    """bench_reduce_parts' five lines at the script's shapes, every line
+    correct, K16 A equal to C; K16 A's SASS holds HMMA; then K16 against its
+    plain version at each line's shape. -> (phase info, kernel rows)."""
+    import torch
+
+    from snark_tpu_torch import _native
+    from snark_tpu_torch import bench_reduce_parts as BR
+    from snark_tpu_torch import bench_vpu_peak as BV
+    from snark_tpu_torch.ops import mul_parts as MP
+
+    _native.reset_launches()
+    res = BR.run()
+    launches = {k: v for k, v in _native.LAUNCHES.items() if v}
+    if not res["correct"]:
+        bad = [rec["line"] for rec in res["lines"] if not rec["correct"]]
+        raise AssertionError(f"bench_reduce_parts: lines not correct: {bad}")
+    hmma = None
+    if isinstance(sass, dict):
+        ops = sass.get(f"reduce_parts_chain_kernel<{MP.PARTS_KINDS.index('A')}>", {})
+        hmma = sum(n for op, n in ops.items() if op.startswith("HMMA"))
+        if not hmma:
+            raise AssertionError("K16 A: no HMMA in its SASS")
+    am, bm = BV.mont_inputs(BR.LANES, device)
+    fns = {rec["line"]: (lambda k=rec["kind"], T=rec["T"]: MP.reduce_parts_chain(am, bm, k, T),
+                         lambda k=rec["kind"], T=rec["T"]: MP.reduce_parts_chain_plain(am, bm, k, T))
+           for rec in res["lines"]}
+    a_equals_c = torch.equal(MP.reduce_parts_chain(am, bm, "A", 512),
+                             MP.reduce_parts_chain(am, bm, "C", 512))
+    if not a_equals_c:
+        raise AssertionError("K16 A differs from K16 C")
+    rows = bench_rows(res, launches, fns, "snark_tpu_torch/csrc/mul_parts.cu",
+                      "scripts/bench_reduce_parts.py:100")
+    info = {"nvidia_smi": smi, "lanes": res["lanes"], "lines": res["lines"], "launches": launches,
+            "a_equals_c": a_equals_c, "hmma_in_sass": hmma}
+    return info, rows
+
+
+def phase_bench_bisect_mul(smi: str, device) -> tuple[dict, list[dict]]:
+    """bench_bisect_mul's six lines at the script's shapes, every line
+    correct; then K17 against its plain version at each line's shape.
+    -> (phase info, kernel rows)."""
+    from snark_tpu_torch import _native
+    from snark_tpu_torch import bench_bisect_mul as BB
+    from snark_tpu_torch import bench_vpu_peak as BV
+    from snark_tpu_torch.ops import mul_parts as MP
+
+    _native.reset_launches()
+    res = BB.run()
+    launches = {k: v for k, v in _native.LAUNCHES.items() if v}
+    if not res["correct"]:
+        bad = [rec["line"] for rec in res["lines"] if not rec["correct"]]
+        raise AssertionError(f"bench_bisect_mul: lines not correct: {bad}")
+    am, bm = BV.mont_inputs(BB.LANES, device)
+    fns = {k: (lambda k=k: MP.bisect_chain(am, bm, k), lambda k=k: MP.bisect_chain_plain(am, bm, k))
+           for k in MP.BISECT_KINDS}
+    rows = bench_rows(res, launches, fns, "snark_tpu_torch/csrc/mul_parts.cu",
+                      "scripts/bench_bisect_mul.py:98")
+    return {"nvidia_smi": smi, "lanes": res["lanes"], "lines": res["lines"],
+            "launches": launches}, rows
+
+
 def main() -> int:
     import torch
 
@@ -1038,8 +1148,16 @@ def main() -> int:
     info_v, vpu_rows = phase_bench_vpu_peak(smi, device)
     phase_line("bench_vpu_peak", t0, **info_v)
 
+    t0 = time.time()
+    info_r, parts_rows = phase_bench_reduce_parts(smi, device, build["sass"])
+    phase_line("bench_reduce_parts", t0, **info_r)
+
+    t0 = time.time()
+    info_m, bisect_rows = phase_bench_bisect_mul(smi, device)
+    phase_line("bench_bisect_mul", t0, **info_m)
+
     # each row's launches from the run of its path: the prove's, the MSM
-    # bench's, bench_field's for K9 and K10 (K11's and K12-K15's were set
+    # bench's, bench_field's for K9 and K10 (K11's and K12-K17's were set
     # in their phases)
     for group, counts in ((rows, launches), (bls_rows, launches_bls),
                           (msm_rows, bench_launches), (bls_msm_rows, bench_launches_bls)):
@@ -1047,7 +1165,7 @@ def main() -> int:
             if row["launches"] is None:
                 path = field_launches if row["name"].startswith("mont_mul16") else counts
                 row["launches"] = path.get(row["name"], 0)
-    rows = rows + bls_rows + msm_rows + bls_msm_rows + vpu_rows
+    rows = rows + bls_rows + msm_rows + bls_msm_rows + vpu_rows + parts_rows + bisect_rows
     for row in rows:
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} was not launched on the main path")

@@ -66,15 +66,21 @@ _SIGNATURES = {
     # a, b, out, lanes, reps, threads, stream
     "snark_conv_chain": [_P, _P, _P, _I, _I, _I, _P],
     "snark_mont_mul_chain": [_P, _P, _P, _I, _I, _I, _P],
+    # the decomposition kernels (csrc/mul_parts.cu): a, b, out, band
+    # fragments, lanes, kind, lanes a block, reps, stream
+    "snark_reduce_parts_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # a, b, out, lanes, kind, lanes a block, reps, stream
+    "snark_bisect_chain": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 # The curve code every entry point takes first (csrc/field.cuh), and the
 # kernels each curve has instances of (every kernel, on both curves). An
 # entry point returns NOT_PORTED for a curve it has no instance for; the
 # wrappers refuse such a call before it reaches the library
-# (`require_ported`). The roofline kernels K12-K15 take no curve: K12-K14
-# work on plain floats and K15 is compiled for BN254 Fq alone
-# (`_FREE_KERNELS`).
+# (`require_ported`). The roofline kernels K12-K15 and the decomposition
+# kernels K16-K17 take no curve: K12-K14 work on plain floats, K15-K17 are
+# compiled for BN254 Fq alone (`_FREE_KERNELS`). K16 counts its launches
+# per kind and block width, K17 per kind.
 CURVE_CODES = {"bn254": 0, "bls12_381": 1}
 NOT_PORTED = -1
 _KERNELS = frozenset({
@@ -85,7 +91,11 @@ _KERNELS = frozenset({
 # kernels over a scalar field: one counter per curve, not per group
 _SCALAR_KERNELS = ("ntt_stage", "field_ew", "mont_mul16", "mont_mul16_limb_major")
 _PORTED = {"bn254": _KERNELS, "bls12_381": _KERNELS}
-_FREE_KERNELS = ("fma_chain", "sweep_chain", "conv_chain", "mont_mul_chain")
+_FREE_KERNELS = (
+    "fma_chain", "sweep_chain", "conv_chain", "mont_mul_chain",
+    *(f"reduce_parts_chain_{kind}_{T}" for kind in "ABC" for T in (512, 2048)),
+    *(f"bisect_chain_{kind}" for kind in ("conv0", "conv1", "conv3", "conv9", "sweep9", "convreg")),
+)
 
 
 def counter_name(kernel: str, curve: str, group: str | None = None) -> str:

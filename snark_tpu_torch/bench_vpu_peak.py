@@ -168,7 +168,7 @@ def _close(got: torch.Tensor, want, rtol: float = 0.0, atol: float = 0.0) -> boo
     return bool(torch.allclose(got.to(torch.float64), want, rtol=rtol, atol=atol))
 
 
-def _tiles_equal(t: torch.Tensor, period: int) -> bool:
+def tiles_equal(t: torch.Tensor, period: int) -> bool:
     """Every lane equals lane (index mod period): lanes on the last axis of
     a plane, on the first of a point batch."""
     if t.dim() == 2:
@@ -178,7 +178,7 @@ def _tiles_equal(t: torch.Tensor, period: int) -> bool:
     return bool(torch.equal(v, v[:1].expand_as(v)))
 
 
-def _timed(fn, iters: int, cuda: bool, device):
+def timed(fn, iters: int, cuda: bool, device):
     """-> (fn(), ms a call or None, peak bytes or None)."""
     if not cuda:
         return fn(), None, None
@@ -231,7 +231,7 @@ def run(
     lines = []
 
     def line(name, fn, checks, n_lanes, ops, peak, nbytes):
-        out, ms, mem = _timed(fn, iters, cuda, device)
+        out, ms, mem = timed(fn, iters, cuda, device)
         unit, scale, per_lane = UNIT[name]
         work = REPS[name] * n_lanes * per_lane
         b_ms, by = bound_ms(ops, peak, nbytes)
@@ -272,7 +272,7 @@ def run(
     R = REPS["mont_mul"]
     line("mont_mul", lambda: V.mont_mul_chain(am, bm, R, threads=threads), [
         lambda out: not cuda or _close(out, V.mont_mul_chain_plain(am, bm, R)),
-        lambda out: _tiles_equal(out, PAIRS),
+        lambda out: tiles_equal(out, PAIRS),
         lambda out: pf.unpack_np(out[:, hs]) == mont_oracle(R),
     ], lanes, R * lanes * V.mont_mul_ops(), PEAK_FP32, 3 * plane_bytes)
 
@@ -288,7 +288,7 @@ def run(
 
     line("madd", madd_chain, [
         lambda out: not cuda or torch.equal(out, madd_chain(C.bucket_madd_rows_plain)),
-        lambda out: _tiles_equal(out, POOL),
+        lambda out: tiles_equal(out, POOL),
         lambda out: C.limbs_to_points(out[:POOL], "g1", BN254)
         == [hc.scalar_mul(pt, R) for pt in pool],
     ], madd_lanes, R * madd_lanes * MADD_G1_IMADS, PEAK_IMAD,

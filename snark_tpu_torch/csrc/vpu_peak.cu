@@ -4,7 +4,9 @@
 // lanes contiguous, R = 34 (BN254 Fq with two extra digits, the script's
 // planes). One thread owns one lane: its digits live in registers for the
 // whole chain, a warp's read of row i is 128 contiguous bytes, and R is a
-// template constant so that every digit loop unrolls. Each C entry point
+// template constant so that every digit loop unrolls. The field's device
+// code (digit tables, sweeps, mul_acc, the scalar-constant reduction) is in
+// plane_v3.cuh, shared with K16 and K17 (mul_parts.cu). Each C entry point
 // returns cudaGetLastError() after its launch.
 //
 // K12 fma_chain replaces fma_run (scripts/bench_vpu_peak.py:75, pallas_call
@@ -43,62 +45,12 @@
 
 #include <cuda_runtime.h>
 
+#include "plane_v3.cuh"
+
 namespace snark {
 
 constexpr int kVpuRows = 34;
 constexpr int kVpuMaxThreads = 256;
-constexpr int kCarryRows = 12;  // rows of s_lo that reach the carry (>= 2^-73)
-
-// BN254 Fq, R8 = 34 (extra_digits = 2): the digits of N' = -p^-1 mod 256^34,
-// of p and of 2p, as the port's PlaneFieldV3 makes them (checked against it
-// by the port's tests).
-struct Bn254Fq34 {
-  static constexpr int kRows = 34;
-  __host__ __device__ static constexpr float np(int i) {
-    constexpr float d[34] = {137, 99,  134, 228, 130, 7,   210, 135, 201, 106, 202, 30,
-                             101, 125, 222, 158, 128, 218, 51,  24,  208, 203, 175, 216,
-                             107, 140, 136, 145, 183, 34,  122, 245, 111, 44};
-    return d[i];
-  }
-  __host__ __device__ static constexpr float p(int i) {
-    constexpr float d[34] = {71,  253, 124, 216, 22, 140, 32,  60,  141, 202, 113, 104,
-                             145, 106, 129, 151, 93, 88,  129, 129, 182, 69,  80,  184,
-                             41,  160, 49,  225, 114, 78, 100, 48,  0,   0};
-    return d[i];
-  }
-  __host__ __device__ static constexpr float p2(int i) {
-    constexpr float d[34] = {142, 250, 249, 176, 45, 24,  65,  120, 26,  149, 227, 208,
-                             34,  213, 2,   47,  187, 176, 2,   3,   109, 139, 160, 112,
-                             83,  64,  99,  194, 229, 156, 200, 96,  0,   0};
-    return d[i];
-  }
-};
-
-// 2^(8 e) for -15 <= e <= 0, from its exponent bits: an immediate once the
-// loop that calls it unrolls
-__device__ __forceinline__ float pow256(int e) { return __int_as_float((127 + 8 * e) << 23); }
-
-// One base-256 carry sweep between rows, in place (the reference's
-// _sweep): c_i = floor(z_i / 256), r_i = z_i - 256 c_i, z_i = r_i + c_{i-1};
-// the carry out of the top row is dropped.
-template <int R>
-__device__ __forceinline__ void sweep(float (&z)[R]) {
-  float carry = 0.0f;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const float c = floorf(z[i] * (1.0f / 256.0f));
-    const float r = __fmaf_rn(-256.0f, c, z[i]);
-    z[i] = i == 0 ? r : __fadd_rn(r, carry);
-    carry = c;
-  }
-}
-
-template <int R>
-__device__ __forceinline__ void sweep3(float (&z)[R]) {
-  sweep<R>(z);
-  sweep<R>(z);
-  sweep<R>(z);
-}
 
 // ---------------------------------------------------------------------------
 // K12
@@ -170,13 +122,7 @@ __global__ void __launch_bounds__(kVpuMaxThreads)
     B[i] = b[(size_t)i * lanes + l];
   }
   for (int r = 0; r < reps; ++r) {
-#pragma unroll
-    for (int k = 0; k < 2 * R; ++k) t[k] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-#pragma unroll
-      for (int j = 0; j < R; ++j) t[i + j] = __fmaf_rn(A[i], B[j], t[i + j]);
-    }
+    mul_acc<R, true>(A, B, t);
 #pragma unroll
     for (int i = 0; i < R; ++i) A[i] = __fmul_rn(t[i], 1e-7f);
   }
@@ -202,54 +148,9 @@ __global__ void __launch_bounds__(kVpuMaxThreads)
     B[i] = b[(size_t)i * lanes + l];
   }
   for (int rep = 0; rep < reps; ++rep) {
-    // t = A B: the lazy 2R-row digit product (mul_acc)
     float t[2 * R];
-#pragma unroll
-    for (int k = 0; k < 2 * R; ++k) t[k] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-#pragma unroll
-      for (int j = 0; j < R; ++j) t[i + j] = __fmaf_rn(A[i], B[j], t[i + j]);
-    }
-    // m = sweep3(sweep3(t mod R) N' mod R); the convolution runs in place,
-    // from the top row down, as u[k] reads only rows <= k
-    float u[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) u[i] = t[i];
-    sweep3<R>(u);
-#pragma unroll
-    for (int k = R - 1; k >= 0; --k) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int i = 0; i <= k; ++i) {
-        if (F::np(i) != 0.0f) acc = __fmaf_rn(F::np(i), u[k - i], acc);
-      }
-      u[k] = acc;
-    }
-    sweep3<R>(u);
-    // s = t + m p (the low half's value is 0 mod R), on the rows that reach
-    // the carry or the high half: rows below R - kCarryRows are never read
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      if (F::p(i) == 0.0f) continue;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        if (i + j >= R - kCarryRows) t[i + j] = __fmaf_rn(F::p(i), u[j], t[i + j]);
-      }
-    }
-    // carry = value(s_lo) / R, from the top kCarryRows rows, rounded
-    float c = 0.0f;
-#pragma unroll
-    for (int i = R - kCarryRows; i < R; ++i) c = __fmaf_rn(t[i], pow256(i - R), c);
-    c = rintf(c);
-    // A = sweep3(s_hi + carry + 2p)
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      float v = j == 0 ? __fadd_rn(t[R], c) : t[R + j];
-      if (F::p2(j) != 0.0f) v = __fadd_rn(v, F::p2(j));
-      A[j] = v;
-    }
-    sweep3<R>(A);
+    mul_acc<R, true>(A, B, t);
+    reduce_scalar<F>(t, A);
   }
 #pragma unroll
   for (int i = 0; i < R; ++i) out[(size_t)i * lanes + l] = A[i];

@@ -20,18 +20,24 @@ it approximates (the reference's module docstring).
 The reference writes its products into a scratch ref (`t_ref[...] +=`)
 inside a Pallas kernel. Here `mul_acc` and `conv_into` return the
 accumulated tensor, and `reduce` takes the (2R8, N) product and returns
-(R8, N). `reduce` has the reference's scalar-constant backend (`m_np` and
-`m_p` None: the convolutions by N' and p as scalar multiply-adds), which
-`scripts/bench_vpu_peak.py` runs; its band-matrix backend (bf16 matmuls by
-`M_NP`, `M_P`) is not ported yet. Of the reference's other members only
-those the port calls are here: not `add`, `sub`, the canonicalisation
-(`_strict`, `cond_sub_p`, `to_canonical`) or the columns only they take
-(`P4_COL`, `KP_COLS`, `RMP_COL`, `ONE_MONT_COL`, `R2_COL`). The constants
-are numpy arrays, as in the reference; the methods take them, or tensors,
-wherever a column is an argument.
+(R8, N). `reduce` has both of the reference's backends for the
+convolutions by N' and p: scalar multiply-adds (`m_np` and `m_p` None),
+which `scripts/bench_vpu_peak.py` runs, and products by the band matrices
+`M_NP` (R8, R8) and `M_P` (2R8, R8) with bf16 factors and float32 sums,
+which variant A of `scripts/bench_reduce_parts.py` runs. The band products
+round their inputs to bf16 and multiply in float32 (`torch.mm` of two bf16
+tensors would round the sums to bf16 too): exact while every input digit
+lies in [-256, 256], which `band_mm` asserts, and every sum below 2^24
+(below 2^22 here). Both backends give the same digits. Of the
+reference's other members only those the port calls are here: not `add`,
+`sub`, the canonicalisation (`_strict`, `cond_sub_p`, `to_canonical`) or
+the columns only they take (`P4_COL`, `KP_COLS`, `RMP_COL`,
+`ONE_MONT_COL`, `R2_COL`). The constants are numpy arrays, as in the
+reference; the methods take them, or tensors, wherever a column is an
+argument.
 
-These are the plain versions of K15 (`ops/vpu_peak.py`); no kernel runs
-here.
+These are the plain versions of K15 (`ops/vpu_peak.py`), K16 and K17
+(`ops/mul_parts.py`); no kernel runs here.
 """
 
 from __future__ import annotations
@@ -54,6 +60,18 @@ def _col(x, like: torch.Tensor) -> torch.Tensor:
     """A constant column (numpy or tensor) as a float32 tensor on like's
     device."""
     return torch.as_tensor(x, dtype=F32, device=like.device)
+
+
+def band_mm(m, x: torch.Tensor) -> torch.Tensor:
+    """m @ x as the reference's bf16 matmul with float32 sums
+    (`jnp.dot(m, x.astype(bf16), preferred_element_type=f32)`): both factors
+    rounded to bf16, the product taken in float32. Exact for integer
+    digits in [-256, 256] and sums below 2^24; a digit outside that range
+    would round, so it fails here instead."""
+    if float(x.abs().max()) > 256:
+        raise AssertionError("band product: a digit outside [-256, 256] is not bf16-exact")
+    m = _col(m, x).to(torch.bfloat16).float()
+    return m @ x.to(torch.bfloat16).float()
 
 
 def _sweep(z: torch.Tensor) -> torch.Tensor:
@@ -111,7 +129,7 @@ class PlaneFieldV3:
 
         self.P_COL = digits_col(p, R8)
         self.P2_COL = digits_col(2 * p, R8)
-        # the band matrices of the reference's matmul backend (not ported)
+        # the band matrices of the band-product backend
         self.M_NP = band(self.n_prime_eff, R8, R8)  # x -> x·N' mod R
         self.M_P = band(p, 2 * R8, R8)  # x -> x·P
         # the constant multiplies of the reduction, as digit sequences
@@ -154,16 +172,22 @@ class PlaneFieldV3:
             t[i : i + R8] += A[i : i + 1] * B
         return t
 
-    def reduce(self, t: torch.Tensor, carry_scale, plus_p=None) -> torch.Tensor:
+    def reduce(self, t: torch.Tensor, carry_scale, plus_p=None, m_np=None, m_p=None) -> torch.Tensor:
         """Montgomery-reduce a lazy (2R8, N) product t -> (R8, N), value
         t·R^-1 (+ plus_p, a k·p column). Signed digits (|d| <= 2^22) are fine; pass
         `plus_p` to keep values nonnegative. Output digits in
-        [-1, 256] ([0, 256] for nonnegative inputs). Scalar-constant
-        backend only (see the module docstring)."""
+        [-1, 256] ([0, 256] for nonnegative inputs). With `m_np` and `m_p`
+        (the band matrices `M_NP`, `M_P`) the constant multiplies are band
+        products (`band_mm`), else scalar multiply-adds; the digits are the
+        same."""
         R8 = self.R8
         tlo = sweep3(t[:R8])  # mod-R truncation: the top carry is dropped
-        m = sweep3(self.conv_into(self.NP_DIGITS, tlo, R8))  # ≡ t·N' (mod R)
-        mp = self.conv_into(self.P_DIGITS, m, 2 * R8)
+        if m_np is None:
+            m = sweep3(self.conv_into(self.NP_DIGITS, tlo, R8))  # ≡ t·N' (mod R)
+            mp = self.conv_into(self.P_DIGITS, m, 2 * R8)
+        else:
+            m = sweep3(band_mm(m_np, tlo))
+            mp = band_mm(m_p, m)
         s = t + mp  # low half's value ≡ 0 mod R
         carry = torch.round(torch.sum(s[:R8] * _col(carry_scale, s), dim=0, keepdim=True))
         hi = s[R8:]
@@ -172,9 +196,11 @@ class PlaneFieldV3:
             out = out + _col(plus_p, out)
         return sweep3(out)
 
-    def mont_mul(self, A: torch.Tensor, B: torch.Tensor, carry_scale, plus_p=None) -> torch.Tensor:
+    def mont_mul(
+        self, A: torch.Tensor, B: torch.Tensor, carry_scale, plus_p=None, m_np=None, m_p=None
+    ) -> torch.Tensor:
         """Full Montgomery product on planes: reduce(mul_acc(A, B))."""
-        return self.reduce(self.mul_acc(A, B), carry_scale, plus_p)
+        return self.reduce(self.mul_acc(A, B), carry_scale, plus_p, m_np, m_p)
 
     # ------------------------------------------------------------------
     # host codecs

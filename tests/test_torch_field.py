@@ -191,12 +191,14 @@ def _port_sources():
 
 def test_port_imports_no_jax():
     """No module of the port, and not chip_smoke.py, imports jax or the
-    JAX package; the walk reaches every module, the field layer, K9-K15,
-    bench_field and bench_vpu_peak among them."""
+    JAX package; the walk reaches every module, the field layer, K9-K17,
+    bench_field, bench_vpu_peak, bench_reduce_parts and bench_bisect_mul
+    among them."""
     walked = {os.path.relpath(path, ROOT) for path in _port_sources()}
     for mod in ("fields/device.py", "fields/device_f32.py", "ops/mont16.py", "ops/curve.py",
                 "bench_field.py", "ops/plane_field_v3.py", "ops/vpu_peak.py",
-                "bench_vpu_peak.py"):
+                "bench_vpu_peak.py", "ops/mul_parts.py", "bench_reduce_parts.py",
+                "bench_bisect_mul.py"):
         assert os.path.join("snark_tpu_torch", mod) in walked, mod
     bad = []
     for path in _port_sources():

@@ -15,7 +15,7 @@ import random
 import pytest
 import torch
 
-from snark_tpu_torch import _native, bench_field, bench_vpu_peak
+from snark_tpu_torch import _native, bench_bisect_mul, bench_field, bench_reduce_parts, bench_vpu_peak
 from snark_tpu_torch.fields.limbs import BLS_FR, FR, fields_of
 from snark_tpu_torch.fields.params import BLS12_381, BN254
 from snark_tpu_torch.groth16 import Groth16, ProvingKey
@@ -25,6 +25,7 @@ from snark_tpu_torch.ops import ntt as N
 from snark_tpu_torch.ops.curve_host import host_g1, host_g2
 from snark_tpu_torch.ops import mont16 as M16
 from snark_tpu_torch.ops import msm_affine as A
+from snark_tpu_torch.ops import mul_parts as MP
 from snark_tpu_torch.ops import vpu_peak as VP
 from snark_tpu_torch.ops.msm import signed_digits, unsigned_digits
 from snark_tpu_torch.ops.msm_plane import PlaneMsm
@@ -425,3 +426,43 @@ def test_bench_vpu_peak_lines_correct(cuda):
     res = bench_vpu_peak.run(lanes=4096, device=cuda, iters=1)
     assert res["correct"], [rec["line"] for rec in res["lines"] if not rec["correct"]]
     assert all(rec["ms"] > 0 for rec in res["lines"])
+
+
+def test_mul_parts_kernels_match_plain(cuda):
+    """K16 (A, B, C at both block widths) and K17 (all six kinds) against
+    their plain versions bit for bit, at depths 2 and 8, on lazy inputs
+    (A's digits up to 510); K16 A equals C and a·b^reps on the host."""
+    lanes = 4096
+    pf = VP.plane_field()
+    q = BN254.fq.modulus
+    rng = random.Random(5)
+    va, vb = ([rng.randrange(q) for _ in range(lanes)] for _ in range(2))
+    am = torch.from_numpy(pf.pack_np(va) + pf.P2_COL).to(cuda).contiguous()
+    bm = torch.from_numpy(pf.pack_np(vb)).to(cuda).contiguous()
+    _native.reset_launches()
+    for reps in (2, 8):
+        outs = {}
+        for kind in MP.PARTS_KINDS:
+            for T in MP.PARTS_T:
+                got = MP.reduce_parts_chain(am, bm, kind, T, reps)
+                assert torch.equal(got, MP.reduce_parts_chain_plain(am, bm, kind, T, reps)), (kind, T)
+                outs[kind, T] = got
+        assert torch.equal(outs["A", 512], outs["C", 512]) and torch.equal(outs["A", 2048], outs["C", 512])
+        assert pf.unpack_np(outs["A", 512]) == [x * pow(y, reps, q) % q for x, y in zip(va, vb)]
+        for kind in MP.BISECT_KINDS:
+            assert torch.equal(MP.bisect_chain(am, bm, kind, reps),
+                               MP.bisect_chain_plain(am, bm, kind, reps)), kind
+    for kind in MP.PARTS_KINDS:
+        for T in MP.PARTS_T:
+            assert _native.LAUNCHES[f"reduce_parts_chain_{kind}_{T}"] == 2
+    for kind in MP.BISECT_KINDS:
+        assert _native.LAUNCHES[f"bisect_chain_{kind}"] == 2
+
+
+def test_bench_mul_parts_lines_correct(cuda):
+    """All lines of bench_reduce_parts and bench_bisect_mul at a small size,
+    checked against the plain versions on the card and the host."""
+    for bench in (bench_reduce_parts, bench_bisect_mul):
+        res = bench.run(lanes=4096, device=cuda, iters=1)
+        assert res["correct"], [rec["line"] for rec in res["lines"] if not rec["correct"]]
+        assert all(rec["ms"] > 0 for rec in res["lines"])

@@ -90,8 +90,8 @@ def port(x: np.ndarray) -> torch.Tensor:
 
 
 def cuda_digits(name: str) -> list[float]:
-    """A digit table of `Bn254Fq34` in csrc/vpu_peak.cu."""
-    with open(os.path.join(ROOT, "snark_tpu_torch", "csrc", "vpu_peak.cu")) as f:
+    """A digit table of `Bn254Fq34` in csrc/plane_v3.cuh (K15-K17's)."""
+    with open(os.path.join(ROOT, "snark_tpu_torch", "csrc", "plane_v3.cuh")) as f:
         src = f.read()
     block = src[src.index(f"static constexpr float {name}(int i)"):]
     body = re.search(r"\{([^}]*)\}", block[block.index("d[34] = ") :]).group(1)
