@@ -99,6 +99,17 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    their plain versions bit for bit and to host references. Its launch
    counts go into the kernel line for K17, one row a kind, each held
    against its plain version exactly.
+16. bench_madd_parts: K1's parts (nosub, halfmul, nodecode; BN254 G1) each
+   held against its plain version on the card over the scan's first
+   MIXED_SCAN_STEPS steps at the bench's 81,920 lanes, exactly, and against
+   those steps run through the part's plain body on `scan_step_operands`;
+   each part's whole `window_sums` against the plain pipeline on the CPU
+   at 2^12 points (c = 8: c = 13's 81,920 lanes would hold the plain folds
+   for most of a minute a part), exactly; then
+   `snark_tpu_torch.bench_madd_parts.run` at 2^20 points, signed c = 13,
+   `full` equal to the pool oracle. Its launch counts go into the kernel
+   line, one row a part, with the time of each part's whole main scan
+   beside the shipped K1's.
 
 The last line is `{"ok": true, "device": {...}}`, printed only when every
 phase passed; any failure exits non-zero. No card: exit 1, no result.
@@ -154,6 +165,9 @@ BENCH_LOG_N = {"g1": 20, "g2": 18}  # the msm_bench sizes
 BENCH_C = 13
 VPU_KERNELS = ("fma_chain", "sweep_chain", "conv_chain", "mont_mul_chain")
 PARTS_KERNELS = ("reduce_parts_chain", "bisect_chain")
+K1_BN254_G1 = "bucket_madd_rows_kernel<Fp<FqParams>"  # its instances: the body, 0-3
+MADD_PARTS_CHECK = (12, 8)  # log n and c of bench_madd_parts' whole-pipeline check
+SCRIPT_BODY_LINE = {"nosub": 73, "halfmul": 88, "nodecode": 98}  # scripts/bench_madd_parts.py
 
 
 def phase_line(name: str, t0: float, **info) -> None:
@@ -338,8 +352,8 @@ class SyntheticKey:
 
 
 def short_name(mangled: str) -> str:
-    """`_ZN5snark23bucket_madd_rows_kernelINS_3Fp2INS_11BlsFqParamsEEEE...`
-    -> `bucket_madd_rows_kernel<Fp2<BlsFqParams>>`; an int template
+    """`_ZN5snark23bucket_madd_rows_kernelINS_3Fp2INS_11BlsFqParamsEEELi0EEEv...`
+    -> `bucket_madd_rows_kernel<Fp2<BlsFqParams>, 0>`; an int template
     argument is kept: `_ZN5snark18sweep_chain_kernelILi34EEE...` ->
     `sweep_chain_kernel<34>`."""
     m = re.match(r"_ZN5snark(\d+)", mangled)
@@ -357,16 +371,20 @@ def short_name(mangled: str) -> str:
         inner = f"Fp2<{inner}>"
     elif "2Fp" in mangled:
         inner = f"Fp<{inner}>"
-    return f"{name}<{inner}>"
+    part = re.search(r"Li(\d+)EEEv", mangled)  # K1's part, after its field
+    return f"{name}<{inner}{f', {part.group(1)}' if part else ''}>"
 
 
 def kernel_template(name: str) -> str:
     """A kernel line's name -> its template in the ptxas report:
     `bucket_madd_rows_bls12_381_g2` -> `bucket_madd_rows_kernel<Fp2<BlsFqParams>>`
     (`point_add` is K2 without a mask)."""
+    from snark_tpu_torch.ops import madd_parts as KP
     from snark_tpu_torch.ops import mul_parts as MP
     from snark_tpu_torch.ops import vpu_peak as V
 
+    if name.startswith("bucket_madd_rows_part_"):  # BN254 G1 alone
+        return f"bucket_madd_rows_kernel<Fp<FqParams>, {KP.PARTS.index(name.rsplit('_', 1)[1])}>"
     for kernel, kinds in zip(PARTS_KERNELS, (MP.PARTS_KINDS, MP.BISECT_KINDS)):
         if name.startswith(kernel + "_"):  # reduce_parts_chain_A_512, bisect_chain_conv0
             return f"{kernel}_kernel<{kinds.index(name[len(kernel) + 1 :].split('_')[0])}>"
@@ -380,7 +398,8 @@ def kernel_template(name: str) -> str:
         return f"{base}_kernel<{bls}FrParams>"
     base, group = base.rsplit("_", 1)
     base = "masked_add" if base == "point_add" else base
-    return f"{base}_kernel<{'Fp2' if group == 'g2' else 'Fp'}<{bls}FqParams>>"
+    part = ", 0" if base == "bucket_madd_rows" else ""  # the shipped body
+    return f"{base}_kernel<{'Fp2' if group == 'g2' else 'Fp'}<{bls}FqParams>{part}>"
 
 
 def phase_build() -> dict:
@@ -407,7 +426,8 @@ def phase_build() -> dict:
 
 
 def sass_mix(lib: str, nvcc: str) -> dict | str:
-    """Static SASS opcode counts of K12-K17 in the built library, from
+    """Static SASS opcode counts of K12-K17 and of the BN254 G1 instances
+    of K1 (the shipped body and its parts) in the built library, from
     `cuobjdump -sass` beside nvcc (a note instead where it is missing)."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     if not os.path.isfile(tool):
@@ -419,7 +439,8 @@ def sass_mix(lib: str, nvcc: str) -> dict | str:
         if m:
             short = short_name(m.group(1))
             base = short.split("<")[0].removesuffix("_kernel")
-            name = short if base in VPU_KERNELS + PARTS_KERNELS else None
+            keep = base in VPU_KERNELS + PARTS_KERNELS or short.startswith(K1_BN254_G1)
+            name = short if keep else None
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
         if m and name:
@@ -1041,6 +1062,102 @@ def phase_bench_bisect_mul(smi: str, device) -> tuple[dict, list[dict]]:
             "launches": launches}, rows
 
 
+def phase_bench_madd_parts(smi: str, device, sass) -> tuple[dict, list[dict]]:
+    """K1's parts against their plain versions: over the scan's first
+    MIXED_SCAN_STEPS steps at the bench's lanes (and those steps run through
+    the part's plain body, step by step), and as whole window sums at a
+    small size against the plain pipeline on the CPU; then the bench at its
+    full size, `full` correct. -> (phase info, kernel rows, one a part)."""
+    import torch
+
+    from snark_tpu_torch import _native
+    from snark_tpu_torch import bench as B
+    from snark_tpu_torch import bench_madd_parts as BM
+    from snark_tpu_torch.ops import curve as C
+    from snark_tpu_torch.ops import madd_parts as KP
+    from snark_tpu_torch.ops.msm_plane import PlaneMsm
+
+    inp = B.make_inputs(BENCH_LOG_N["g1"], signed=True, c=BM.C_WINDOW, device=device)
+    plan = PlaneMsm(BM.C_WINDOW, 254, "g1")
+    n = inp.n
+    perm, start, length = plan._buckets(inp.digits.t().contiguous())
+    i32 = lambda t: t.to(torch.int32).contiguous()  # noqa: E731
+    lane_base = i32(torch.arange(plan.lanes, device=device) // plan.nb * n)
+    length = i32(plan.spill_plan(length, max(1, n // plan.nb))[0])  # the main scan's runs
+    start = i32(start)
+    acc0 = C.identity(plan.lanes, "g1", device)
+    steps, k = int(length.max()), MIXED_SCAN_STEPS
+    adds = int(length.clamp(max=k).sum())  # rows the first k steps add (no identity rows)
+    scan_adds = int(length.sum())
+    steps_ms = {"full": cuda_ms(lambda: C.bucket_madd_rows(
+        acc0, inp.table, perm, lane_base, start, length, 0, k))}
+    scan_ms = {"full": cuda_ms(lambda: C.bucket_madd_rows(
+        acc0, inp.table, perm, lane_base, start, length, 0, steps))}
+    rows = []
+    for code, part in enumerate(KP.PARTS):
+        if part == "full":
+            continue
+
+        def k1(part=part, k_steps=k):
+            return KP.bucket_madd_rows_part(
+                part, acc0, inp.table, perm, lane_base, start, length, 0, k_steps)
+
+        out = k1()
+        ref, pms = plain_time(lambda: KP.bucket_madd_rows_part_plain(
+            part, acc0, inp.table, perm, lane_base, start, length, 0, k))
+        err = max_abs_err(out, ref)
+        stepped = acc0
+        for i in range(k):
+            x2, y2, mask = scan_step_operands(inp.table, perm, lane_base, start, length, i,
+                                              "g1", C.BN254)
+            stepped = KP.masked_madd_part_plain(part, stepped, x2, y2, mask)
+        max_abs_err(out, stepped)
+        steps_ms[part] = cuda_ms(k1)
+        scan_ms[part] = cuda_ms(lambda: k1(k_steps=steps))
+        b, by = BM.scan_bound(part, adds, plan.lanes)
+        template = f"{K1_BN254_G1}, {code}>"
+        ops = sass.get(template, {}) if isinstance(sass, dict) else {}
+        rows.append({
+            "name": BM.kernel_of(part), "route": "cuda",
+            "source": "snark_tpu_torch/csrc/madd_parts.cu",
+            "replaces": f"scripts/bench_madd_parts.py:{SCRIPT_BODY_LINE[part]}",
+            "launches": None, "max_abs_err": err, "ms": steps_ms[part], "plain_ms": pms,
+            "bound_ms": b, "bound_by": by, "library_ms": None, "steps": k,
+            "lanes": plan.lanes, "tolerance": "exact", "equals_stepped_plain_body": True,
+            "scan_ms": scan_ms[part], "scan_bound_ms": BM.scan_bound(part, scan_adds, plan.lanes)[0],
+            "sass_instructions": sum(ops.values()) if ops else None,
+        })
+        del out, ref, stepped
+    full_ops = sass.get(f"{K1_BN254_G1}, 0>", {}) if isinstance(sass, dict) else {}
+    del acc0, perm, start, length, lane_base
+    torch.cuda.empty_cache()
+
+    # each part's whole window sums against the plain pipeline (CPU)
+    log_small, c_small = MADD_PARTS_CHECK
+    small = B.make_inputs(log_small, signed=True, c=c_small, device="cpu")
+    for part in KP.PARTS:
+        got = PlaneMsm(c_small, 254, "g1", part=part).window_sums(
+            small.table.to(device), small.digits.to(device))
+        max_abs_err(got.cpu(), PlaneMsm(c_small, 254, "g1", part=part).window_sums(
+            small.table, small.digits))
+
+    # the main path: the bench at its full size
+    _native.reset_launches()
+    res = BM.run(inputs=inp)
+    launches = {k: v for k, v in _native.LAUNCHES.items() if v}
+    if not res["correct"]:
+        raise AssertionError("bench_madd_parts: the full line differs from the pool oracle")
+    for row in rows:
+        row["launches"] = launches.get(row["name"], 0)
+    for rec in res["lines"]:
+        print(BM.format_line(rec), flush=True)
+    info = {"nvidia_smi": smi, "lines": res["lines"], "launches": launches,
+            "steps_ms": steps_ms, "scan_ms": scan_ms, "scan_adds": scan_adds, "steps": steps,
+            "window_sums_equal_plain_pipeline": {"log_n": log_small, "c": c_small},
+            "k1_full_sass_instructions": sum(full_ops.values()) if full_ops else None}
+    return info, rows
+
+
 def main() -> int:
     import torch
 
@@ -1156,16 +1273,21 @@ def main() -> int:
     info_m, bisect_rows = phase_bench_bisect_mul(smi, device)
     phase_line("bench_bisect_mul", t0, **info_m)
 
+    t0 = time.time()
+    info_k, madd_rows = phase_bench_madd_parts(smi, device, build["sass"])
+    phase_line("bench_madd_parts", t0, **info_k)
+
     # each row's launches from the run of its path: the prove's, the MSM
-    # bench's, bench_field's for K9 and K10 (K11's and K12-K17's were set
-    # in their phases)
+    # bench's, bench_field's for K9 and K10 (K11's, K12-K17's and K1's
+    # parts' were set in their phases)
     for group, counts in ((rows, launches), (bls_rows, launches_bls),
                           (msm_rows, bench_launches), (bls_msm_rows, bench_launches_bls)):
         for row in group:
             if row["launches"] is None:
                 path = field_launches if row["name"].startswith("mont_mul16") else counts
                 row["launches"] = path.get(row["name"], 0)
-    rows = rows + bls_rows + msm_rows + bls_msm_rows + vpu_rows + parts_rows + bisect_rows
+    rows = (rows + bls_rows + msm_rows + bls_msm_rows + vpu_rows + parts_rows + bisect_rows
+            + madd_rows)
     for row in rows:
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} was not launched on the main path")

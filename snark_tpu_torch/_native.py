@@ -39,6 +39,9 @@ _SIGNATURES = {
     # curve, group, acc_in, acc_out, table, row_bytes, perm, lane_base,
     # start, length, lanes, i0, k_steps, stream
     "snark_bucket_madd_rows": [_I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    # K1's parts (csrc/madd_parts.cu): curve, group, part, then as
+    # snark_bucket_madd_rows
+    "snark_bucket_madd_rows_part": [_I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     # curve, group, p, q, mask, out, lanes, stream
     "snark_masked_add": [_I, _I, _P, _P, _P, _P, _I, _P],
     # curve, x, y, tw, n, log_half, tw_stride, dif, stream
@@ -80,7 +83,9 @@ _SIGNATURES = {
 # (`require_ported`). The roofline kernels K12-K15 and the decomposition
 # kernels K16-K17 take no curve: K12-K14 work on plain floats, K15-K17 are
 # compiled for BN254 Fq alone (`_FREE_KERNELS`). K16 counts its launches
-# per kind and block width, K17 per kind.
+# per kind and block width, K17 per kind. K1's parts (`bucket_madd_rows_part`)
+# have BN254 G1 instances alone and count their launches per part
+# (`_PART_KERNELS`).
 CURVE_CODES = {"bn254": 0, "bls12_381": 1}
 NOT_PORTED = -1
 _KERNELS = frozenset({
@@ -90,7 +95,9 @@ _KERNELS = frozenset({
 })
 # kernels over a scalar field: one counter per curve, not per group
 _SCALAR_KERNELS = ("ntt_stage", "field_ew", "mont_mul16", "mont_mul16_limb_major")
-_PORTED = {"bn254": _KERNELS, "bls12_381": _KERNELS}
+_PORTED = {"bn254": _KERNELS | {"bucket_madd_rows_part"}, "bls12_381": _KERNELS}
+MADD_PARTS = ("nosub", "halfmul", "nodecode")  # K1's parts, by their code 1, 2, 3
+_PART_KERNELS = tuple(f"bucket_madd_rows_part_{part}" for part in MADD_PARTS)
 _FREE_KERNELS = (
     "fma_chain", "sweep_chain", "conv_chain", "mont_mul_chain",
     *(f"reduce_parts_chain_{kind}_{T}" for kind in "ABC" for T in (512, 2048)),
@@ -120,12 +127,12 @@ def require_ported(kernel: str, curve: str) -> None:
 
 def _counters() -> dict:
     """Launch counts, one per kernel instance (the curve kernels per group,
-    the curve-free kernels by name alone): each wrapper adds one where it
-    launches. `point_add` is K2 launched without a mask by its own
-    wrapper."""
-    out = dict.fromkeys(_FREE_KERNELS, 0)
+    the curve-free kernels by name alone, K1's parts per part): each
+    wrapper adds one where it launches. `point_add` is K2 launched without
+    a mask by its own wrapper."""
+    out = dict.fromkeys(_FREE_KERNELS + _PART_KERNELS, 0)
     for curve, kernels in _PORTED.items():
-        for k in sorted(kernels):
+        for k in sorted(kernels & _KERNELS):
             if k in _SCALAR_KERNELS:
                 out[counter_name(k, curve)] = 0
                 continue

@@ -6,7 +6,9 @@
 //
 // K1 bucket_madd_rows replaces snark_tpu/ops/pallas_curve.py
 //   make_masked_mixed_add_rows (bodies _madd_mixed_body and
-//   _madd_mixed_body_batched_g1): the bucket scan of the MSM.
+//   _madd_mixed_body_batched_g1): the bucket scan of the MSM. Its step's
+//   body is a template argument (curve.cuh); this file and curve_bls.cu
+//   instantiate the shipped one, madd_parts.cu the benchmark's others.
 // K2 masked_add replaces snark_tpu/ops/pallas_curve.py make_masked_add
 //   (body _add_body): the replica, suffix and spill folds of the MSM. With a
 //   null mask every lane adds, and K2 replaces make_point_add as well: the

@@ -210,6 +210,51 @@ __device__ __forceinline__ Point<E> madd(const Point<E>& p, const E& qx, const E
   return {t3 * t1p - t4 * y3, t1p * z3p + y3 * t0p, z3p * t4 + t0p * t3};
 }
 
+// K1's parts (madd_parts.cu): the body of K1's step, the shipped one or one
+// with a part changed. Only kMaddFull is a group law; the others compute the
+// formulas of the bodies of scripts/bench_madd_parts.py, wrong by design.
+constexpr int kMaddFull = 0;      // madd above
+constexpr int kMaddNosub = 1;     // Alg 8's 13 products, its add/sub glue cut
+constexpr int kMaddHalfmul = 2;   // 6 of Alg 8's products
+constexpr int kMaddNodecode = 3;  // Alg 8 with Q = (Z1, Y1): K1 decodes no row
+
+// nosub: with a = X1 x2, b = Y1 y2, d = y2 Z1, e = x2 Z1,
+// m4 = (X1 + Y1)(x2 + y2), i = b3 Z1, j = b3 (e + X1):
+// (a b - d j, b i + j a, i d + a m4).
+template <class E>
+__device__ __forceinline__ Point<E> madd_nosub(const Point<E>& p, const E& qx, const E& qy) {
+  const E b3 = Curve<E>::b3();
+  E a = p.x * qx;
+  E b = p.y * qy;
+  E d = qy * p.z;
+  E e = qx * p.z;
+  E m4 = (p.x + p.y) * (qx + qy);
+  E i = b3 * p.z;
+  E j = b3 * (e + p.x);
+  return {a * b - d * j, b * i + j * a, i * d + a * m4};
+}
+
+// halfmul: with a, b, m4, i as for nosub: (a b - m4 i, b + i, a + i).
+template <class E>
+__device__ __forceinline__ Point<E> madd_halfmul(const Point<E>& p, const E& qx, const E& qy) {
+  const E b3 = Curve<E>::b3();
+  E a = p.x * qx;
+  E b = p.y * qy;
+  E m4 = (p.x + p.y) * (qx + qy);
+  E i = b3 * p.z;
+  return {a * b - m4 * i, b + i, a + i};
+}
+
+template <int Part, class E>
+__device__ __forceinline__ Point<E> madd_part(const Point<E>& p, const E& qx, const E& qy) {
+  if constexpr (Part == kMaddNosub)
+    return madd_nosub(p, qx, qy);
+  else if constexpr (Part == kMaddHalfmul)
+    return madd_halfmul(p, qx, qy);
+  else
+    return madd(p, qx, qy);
+}
+
 // RCB15 Alg 9 (a = 0): complete projective double (9 multiplications).
 template <class E>
 __device__ __forceinline__ Point<E> pdbl(const Point<E>& p) {

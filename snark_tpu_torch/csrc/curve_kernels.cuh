@@ -8,7 +8,10 @@
 
 namespace snark {
 
-template <class E>
+// K1. Part (curve.cuh) picks the step's body; the default is the shipped
+// one, and the other parts (madd_parts.cu) change nothing else: the
+// gather, the identity skip, the sign, the loop and the store are shared.
+template <class E, int Part = kMaddFull>
 __global__ void bucket_madd_rows_kernel(
     const uint32_t* __restrict__ acc_in, uint32_t* __restrict__ acc_out,
     const uint8_t* __restrict__ table, int row_bytes,
@@ -27,10 +30,14 @@ __global__ void bucket_madd_rows_kernel(
     const uint32_t pay = run[i];
     const uint8_t* row = table + (size_t)(pay & 0x7fffffffu) * row_bytes;
     if (row[flag_at] == 0) continue;  // identity row
-    E qx, qy;
-    decode_row(row, qx, qy);
-    if (pay >> 31) qy = neg(qy);
-    acc = madd(acc, qx, qy);
+    if constexpr (Part == kMaddNodecode) {
+      acc = madd(acc, acc.z, acc.y);  // no decode, the sign ignored
+    } else {
+      E qx, qy;
+      decode_row(row, qx, qy);
+      if (pay >> 31) qy = neg(qy);
+      acc = madd_part<Part>(acc, qx, qy);
+    }
   }
   store_point<E>(acc_out + (size_t)l * LW, acc);
 }

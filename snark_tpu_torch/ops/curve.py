@@ -267,16 +267,31 @@ class _PlainCurve:
         w = div_r16_words(w, self.fq)
         return w[:, :K], w[:, K:]
 
+    def signed_rows(self, rows: torch.Tensor, pay: torch.Tensor):
+        """Decoded rows with y negated where the payload's bit 31 is set."""
+        qx, qy = self.decode_rows(rows)
+        neg = (pay >> 31).bool()
+        if bool(neg.any()):
+            zero = torch.zeros_like(qy[neg])
+            qy[neg] = sub_words(zero, qy[neg], self.fq)
+        return qx, qy
+
 
 def _words(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int64) & 0xFFFFFFFF
 
 
-def bucket_madd_rows_plain(
+def _madd_step(pc: _PlainCurve, P, rows, pay):
+    return pc.madd(P, *pc.signed_rows(rows, pay))
+
+
+def scan_rows_plain(
     acc, table, perm, lane_base, start, length, i0: int, k_steps: int, group: str,
-    curve: CurveParams = BN254,
+    curve: CurveParams, step,
 ) -> torch.Tensor:
-    """Plain version of K1: the same function, on masked lane subsets."""
+    """K1's loop on masked lane subsets: at each step i, the lanes whose run
+    reaches i on a row that is not the identity take
+    P <- step(pc, P, rows, payloads) (int64 words)."""
     pc = _PlainCurve(group, acc.device, curve)
     out = _words(acc).clone()
     flag_at = row_bytes(group, curve) - 1
@@ -292,13 +307,18 @@ def bucket_madd_rows_plain(
         lanes, pay, rows = lanes[keep], pay[keep], rows[keep]
         if lanes.numel() == 0:
             continue
-        qx, qy = pc.decode_rows(rows)
-        neg = (pay >> 31).bool()
-        if bool(neg.any()):
-            zero = torch.zeros_like(qy[neg])
-            qy[neg] = sub_words(zero, qy[neg], pc.fq)
-        out[lanes] = pc.madd(out[lanes], qx, qy)
+        out[lanes] = step(pc, out[lanes], rows, pay)
     return from_words(out)
+
+
+def bucket_madd_rows_plain(
+    acc, table, perm, lane_base, start, length, i0: int, k_steps: int, group: str,
+    curve: CurveParams = BN254,
+) -> torch.Tensor:
+    """Plain version of K1: the same function, on masked lane subsets."""
+    return scan_rows_plain(
+        acc, table, perm, lane_base, start, length, i0, k_steps, group, curve, _madd_step
+    )
 
 
 def decode_rows(rows: torch.Tensor, group: str, curve: CurveParams = BN254):
@@ -356,6 +376,19 @@ def _check_vec(t: torch.Tensor, n: int, name: str, dtype=torch.int32) -> None:
         raise ValueError(f"{name}: want {dtype} ({n},), got {t.dtype} {tuple(t.shape)}")
 
 
+def check_scan(acc, table, perm, lane_base, start, length, group: str, curve: CurveParams) -> int:
+    """K1's operands: (lanes, 3, K, L) int32 accumulators, (N, row_bytes)
+    uint8 rows, int32 vectors. -> lanes."""
+    lanes = _check_points(acc, group, "acc", curve)
+    rb = row_bytes(group, curve)
+    if table.dtype != torch.uint8 or table.dim() != 2 or table.shape[1] != rb:
+        raise ValueError(f"table: want uint8 (N, {rb}), got {table.dtype} {tuple(table.shape)}")
+    _check_vec(perm, -1, "perm")
+    for name, t in (("lane_base", lane_base), ("start", start), ("length", length)):
+        _check_vec(t, lanes, name)
+    return lanes
+
+
 def _launch(kernel: str, counter: str, curve: CurveParams, group: str, *args) -> None:
     _native.launch(
         kernel, _native.counter_name(counter, curve.name, group),
@@ -380,13 +413,7 @@ def bucket_madd_rows(
     with bit 31 set adds the negated point; identity rows are skipped).
     Returns the new accumulators."""
     _native.require_ported("bucket_madd_rows", curve.name)
-    lanes = _check_points(acc, group, "acc", curve)
-    rb = row_bytes(group, curve)
-    if table.dtype != torch.uint8 or table.dim() != 2 or table.shape[1] != rb:
-        raise ValueError(f"table: want uint8 (N, {rb}), got {table.dtype} {tuple(table.shape)}")
-    _check_vec(perm, -1, "perm")
-    for name, t in (("lane_base", lane_base), ("start", start), ("length", length)):
-        _check_vec(t, lanes, name)
+    lanes = check_scan(acc, table, perm, lane_base, start, length, group, curve)
     if acc.device.type == "cpu":
         return bucket_madd_rows_plain(
             acc, table, perm, lane_base, start, length, i0, k_steps, group, curve

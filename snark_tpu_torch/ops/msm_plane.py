@@ -21,7 +21,10 @@ so runs longer than T1 = mean + 1.5·sqrt(mean) among the S2 longest are
 cut at T1 and their overflow is split evenly over the spill lanes, which a
 second K1 launch scans; segmented K2 folds bring the partial sums back.
 Real witnesses need this: the MulChain witness puts about 5% of N into
-single buckets.
+single buckets. `part` picks the body of both K1 launches
+(`ops/madd_parts.py`): the shipped one by default, a variant of
+`bench_madd_parts` otherwise, as the reference's one rows kernel carries
+the body the script swaps in.
 """
 
 from __future__ import annotations
@@ -32,7 +35,6 @@ import torch
 from ..fields.params import BN254, CurveParams
 from .curve import (
     GROUPS,
-    bucket_madd_rows,
     identity,
     limbs_of,
     limbs_to_points,
@@ -40,6 +42,7 @@ from .curve import (
     point_add,
     point_double,
 )
+from .madd_parts import bucket_madd_rows_part
 
 _SIGN = 1 << 31
 SPILL_BUCKETS = 2048  # most buckets a scan spills (the reference's default)
@@ -49,7 +52,9 @@ AFFINE_MIN_MEAN = 8  # the affine tree runs when n >= 8 · 2^cb (the reference's
 class PlaneMsm:
     """Bucket MSM for one (c, num_bits, group, digit mode, curve). With
     `affine=True` the buckets are accumulated by the batch-affine tree
-    wherever the mean bucket holds at least 8 elements, else by the scan."""
+    wherever the mean bucket holds at least 8 elements, else by the scan;
+    `part` is K1's body (`ops/madd_parts.py` PARTS; the prover's is
+    "full")."""
 
     def __init__(
         self,
@@ -59,8 +64,10 @@ class PlaneMsm:
         signed: bool = True,
         affine: bool = False,
         curve: CurveParams = BN254,
+        part: str = "full",
     ):
         self.c = c
+        self.part = part
         self.group = group
         self.curve = curve
         self.K = GROUPS[group]
@@ -173,9 +180,9 @@ class PlaneMsm:
         i32 = lambda t: t.to(torch.int32).contiguous()  # noqa: E731
         lane_base = i32(lane_base)
         eff_len, spill = self.spill_plan(length, mean)
-        acc = bucket_madd_rows(
-            identity(lanes, self.group, dev, self.curve), table, perm, lane_base, i32(start),
-            i32(eff_len), 0, int(eff_len.max()), self.group, self.curve,
+        acc = bucket_madd_rows_part(
+            self.part, identity(lanes, self.group, dev, self.curve), table, perm, lane_base,
+            i32(start), i32(eff_len), 0, int(eff_len.max()), self.group, self.curve,
         )
         if spill is None:
             return acc
@@ -194,10 +201,10 @@ class PlaneMsm:
         o_l = g - cum_pad[b_of]
         bidx = top_idx[b_of]
         sp_len = (ov[b_of] - o_l).clamp(0, chunk)
-        sacc = bucket_madd_rows(
-            identity(S, self.group, dev, self.curve), table, perm, lane_base[bidx].contiguous(),
-            i32(start[bidx] + T1 + o_l), i32(sp_len), 0, int(sp_len.max()), self.group,
-            self.curve,
+        sacc = bucket_madd_rows_part(
+            self.part, identity(S, self.group, dev, self.curve), table, perm,
+            lane_base[bidx].contiguous(), i32(start[bidx] + T1 + o_l), i32(sp_len), 0,
+            int(sp_len.max()), self.group, self.curve,
         )
         # segmented suffix fold: each bucket's chunk partials into its
         # first spill lane

@@ -16,11 +16,13 @@ import pytest
 import torch
 
 from snark_tpu_torch import _native, bench_bisect_mul, bench_field, bench_reduce_parts, bench_vpu_peak
+from snark_tpu_torch import bench as B
 from snark_tpu_torch.fields.limbs import BLS_FR, FR, fields_of
 from snark_tpu_torch.fields.params import BLS12_381, BN254
 from snark_tpu_torch.groth16 import Groth16, ProvingKey
 from snark_tpu_torch.models import MulChainCircuit
 from snark_tpu_torch.ops import curve as C
+from snark_tpu_torch.ops import madd_parts as KP
 from snark_tpu_torch.ops import ntt as N
 from snark_tpu_torch.ops.curve_host import host_g1, host_g2
 from snark_tpu_torch.ops import mont16 as M16
@@ -466,3 +468,25 @@ def test_bench_mul_parts_lines_correct(cuda):
         res = bench.run(lanes=4096, device=cuda, iters=1)
         assert res["correct"], [rec["line"] for rec in res["lines"] if not rec["correct"]]
         assert all(rec["ms"] > 0 for rec in res["lines"])
+
+
+def test_madd_parts_match_plain(cuda):
+    """K1's parts (nosub, halfmul, nodecode) against their plain versions
+    on the card over the first 4 scan steps of a 2^12-point MSM's buckets,
+    exactly, one launch a part; and each part's window sums against the
+    whole plain pipeline on the CPU, exactly."""
+    inp = B.make_inputs(12, signed=True, c=8, device=cuda)
+    plan = PlaneMsm(8, 254, "g1")
+    perm, start, length = plan._buckets(inp.digits.t().contiguous())
+    lane_base = (torch.arange(plan.lanes, device=cuda) // plan.nb * inp.n).to(torch.int32)
+    start, length = start.to(torch.int32), length.to(torch.int32)
+    acc0 = C.identity(plan.lanes, "g1", cuda)
+    _native.reset_launches()
+    for part in _native.MADD_PARTS:
+        got = KP.bucket_madd_rows_part(part, acc0, inp.table, perm, lane_base, start, length, 0, 4)
+        assert torch.equal(got, KP.bucket_madd_rows_part_plain(
+            part, acc0, inp.table, perm, lane_base, start, length, 0, 4)), part
+        assert _native.LAUNCHES[f"bucket_madd_rows_part_{part}"] == 1
+        sums = PlaneMsm(8, 254, "g1", part=part).window_sums(inp.table, inp.digits)
+        plain = PlaneMsm(8, 254, "g1", part=part).window_sums(inp.table.cpu(), inp.digits.cpu())
+        assert torch.equal(sums.cpu(), plain), part
