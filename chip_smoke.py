@@ -8,7 +8,10 @@ Phases, each printing one JSON line with its wall seconds as it ends:
 0. device: the card's name; `nvidia-smi` name and power limit.
 1. build: one nvcc process per source, all at once, that build every
    kernel (registers and spills per kernel and per called function, from
-   ptxas).
+   ptxas); the static SASS opcodes of K12-K17 and of every instance of K1
+   and K2 (`cuobjdump -sass`, where the toolkit has it), and for K1, K2
+   and the called product (`mont_mul_call`) a summary: registers, spill
+   stores, instructions, carry adds beside multiply-adds (`curve_kernels`).
    setup: the synthetic key of prove_full and the MSM bench's inputs.
 2. kernels: K1-K4 against their plain PyTorch versions on the card, at the
    shapes of the 2^18 prove below, and K5 (`point_double`), K2 without a
@@ -23,7 +26,11 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    scan, Q decoded from the key's table rows. K11 has no caller in either
    package, so this phase is its path: the first steps of that scan run
    step by step through K11 (one launch a step, the launch count of its
-   row) and must equal K1 over the same steps.
+   row) and must equal K1 over the same steps. K1, K2, K11 and K5 also
+   run on operands made of edge limb patterns (0, 1, p − 1, all-ones
+   limbs; rows whose components run up to R − 1) at EDGE_LANES lanes, in
+   G1 and G2, equal to their plain versions exactly (`edge_operands` of
+   the K1, K2 and K11 rows).
 3. prove_fixture: proves the committed MulChain(4, 1023) key
    (`tests/vectors/torch_pk_bn254_mulchain1023.npz`) at its committed
    (r, s); the proof must equal the JAX package's committed proof bit for
@@ -51,7 +58,7 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    plain versions at the shapes of that prove, those of K5, K2 without
    a mask and K6-K8 at the shapes of msm_bench_bls, and K9-K11 as in
    phase 2 (K9, K10 over BLS12-381 Fr; K11 at the 2^20 prove's 294,912
-   lanes).
+   lanes; the edge operands through the 12-limb product).
 8. prove_fixture_bls: proves the committed BLS12-381 MulChain(7, 12) key
    (`tests/vectors/torch_pk_bls12_381_mulchain12.npz`, m = 26) at its
    committed (r, s); the proof must equal the JAX package's committed
@@ -83,9 +90,7 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    held against their plain versions at the lines' shapes: K13 and K15
    exactly, K12 within rtol 1e-4, K14 within rtol 1e-5 at depth 4 and
    within rtol 1e-4 plus 8·2^-149 at the line's depth 8, where every
-   value is subnormal (the row records the largest). The build line counts
-   the SASS opcodes of K12-K17 (`cuobjdump -sass`), where the toolkit has
-   cuobjdump.
+   value is subnormal (the row records the largest).
 14. bench_reduce_parts: `snark_tpu_torch.bench_reduce_parts.run` at the
    script's shapes (the same planes; variants A, B, C at T = 512 and A, C
    at T = 2048, 8 deep), every line correct: equal to its plain version,
@@ -143,29 +148,20 @@ PEAK_IMAD = 132 * 64 * 1.98e9
 
 
 
-def imad_per_mul(limbs: int) -> int:
-    """32-bit multiply-adds of one N-limb CIOS product: 2N² (a·b) + 2N²
-    (m·p) + N (m); 264 at N = 8, 588 at N = 12."""
-    return 4 * limbs * limbs + limbs
-
-
-IMAD_PER_MUL = imad_per_mul(8)  # BN254 Fq and both scalar fields
-# Montgomery muls per operation, from csrc/curve.cu and csrc/ntt.cu
-MULS = {
-    "madd_g1": 13 + 2,  # RCB15 Alg 8 + row decode (X, Y)
-    "madd_g2": 13 * 3 + 4,  # Fq2 Karatsuba: 3 base muls each; decode 4
-    "add_g1": 14,  # RCB15 Alg 7
-    "add_g2": 14 * 3,
-    "dbl_g1": 9,  # RCB15 Alg 9
-    "dbl_g2": 9 * 3,
-}
+# The multiply-adds each kernel's bound counts come from
+# snark_tpu_torch/ops/curve.py: imad_per_mul (one CIOS product),
+# imad_per_decode (one 16-bit row decode step) and op_imads (a curve
+# operation, 3b by additions where it is small).
 MIXED_SCAN_STEPS = 4  # scan steps run through K11 in the kernels phases
+EDGE_LANES, EDGE_STEPS = 4096, 8  # the kernels phases' edge-operand checks
 BENCH_FIELD_LOG_N = 20
 BENCH_LOG_N = {"g1": 20, "g2": 18}  # the msm_bench sizes
 BENCH_C = 13
 VPU_KERNELS = ("fma_chain", "sweep_chain", "conv_chain", "mont_mul_chain")
 PARTS_KERNELS = ("reduce_parts_chain", "bisect_chain")
 K1_BN254_G1 = "bucket_madd_rows_kernel<Fp<FqParams>"  # its instances: the body, 0-3
+# the curve kernels and the called product whose SASS the build line counts
+SASS_CURVE_KERNELS = ("bucket_madd_rows", "masked_add", "mont_mul_call")
 MADD_PARTS_CHECK = (12, 8)  # log n and c of bench_madd_parts' whole-pipeline check
 SCRIPT_BODY_LINE = {"nosub": 73, "halfmul": 88, "nodecode": 98}  # scripts/bench_madd_parts.py
 
@@ -421,14 +417,40 @@ def phase_build() -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             funcs[name]["registers"] = int(m.group(1))
+    sass = sass_mix(res.path, _native._nvcc())
     return {"nvcc_seconds": round(res.seconds, 3), "built": res.built, "ptxas": funcs,
-            "sass": sass_mix(res.path, _native._nvcc())}
+            "sass": sass, "curve_kernels": curve_kernel_summary(funcs, sass)}
+
+
+def curve_kernel_summary(ptxas: dict, sass) -> dict:
+    """K1 and K2 on both curves and groups (and K1's parts) and the called
+    product (`mont_mul_call`, the 12-limb field's and Fq2's): registers and
+    spill stores (ptxas), static SASS instructions, the carry adds among
+    them (IADD3, IADD3.X) beside the multiply-adds (the IMAD family but
+    IMAD.MOV) and the moves (IMAD.MOV). cuobjdump lists the called
+    product's SASS within each kernel that calls it."""
+    out = {}
+    for name, p in ptxas.items():
+        if name.split("<")[0].removesuffix("_kernel") not in SASS_CURVE_KERNELS:
+            continue
+        ops = sass.get(name, {}) if isinstance(sass, dict) else {}
+        out[name] = {
+            "registers": p.get("registers"), "spill_stores": p.get("spill_stores"),
+            "sass": sum(ops.values()) if ops else None,
+            "iadd3": sum(n for op, n in ops.items() if op.startswith("IADD3")),
+            "imad": sum(n for op, n in ops.items()
+                        if op.startswith("IMAD") and not op.startswith("IMAD.MOV")),
+            "imad_mov": sum(n for op, n in ops.items() if op.startswith("IMAD.MOV")),
+        }
+    return out
 
 
 def sass_mix(lib: str, nvcc: str) -> dict | str:
-    """Static SASS opcode counts of K12-K17 and of the BN254 G1 instances
-    of K1 (the shipped body and its parts) in the built library, from
-    `cuobjdump -sass` beside nvcc (a note instead where it is missing)."""
+    """Static SASS opcode counts of K12-K17 and of every instance of K1 (the
+    shipped body on both curves and groups, and its BN254 G1 parts) and of
+    K2 (with the called product, where a kernel calls it) in the built
+    library, from `cuobjdump -sass` beside nvcc (a note instead where it is
+    missing)."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     if not os.path.isfile(tool):
         return f"no cuobjdump beside {nvcc}"
@@ -439,7 +461,7 @@ def sass_mix(lib: str, nvcc: str) -> dict | str:
         if m:
             short = short_name(m.group(1))
             base = short.split("<")[0].removesuffix("_kernel")
-            keep = base in VPU_KERNELS + PARTS_KERNELS or short.startswith(K1_BN254_G1)
+            keep = base in VPU_KERNELS + PARTS_KERNELS + SASS_CURVE_KERNELS
             name = short if keep else None
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
@@ -522,13 +544,37 @@ def mixed_scan(acc, tbl, perm, lane_base, start, length, k_steps: int, group: st
     return acc
 
 
+def edge_checks(group: str, curve, device) -> dict:
+    """K1, K2, K11 and K5 on operands made of edge limb patterns, not
+    curve points (`ops/curve.py` edge_scan, edge_points: 0, 1, p − 1,
+    all-ones limbs; rows whose components run up to R − 1), against their
+    plain versions on the card, exactly."""
+    import numpy as np
+    import torch
+
+    from snark_tpu_torch.ops import curve as C
+
+    n, k = EDGE_LANES, EDGE_STEPS
+    acc, table, perm, lane_base, start, length = C.edge_scan(n, k, group, device, curve, seed=1)
+    max_abs_err(C.bucket_madd_rows(acc, table, perm, lane_base, start, length, 0, k, group, curve),
+                C.bucket_madd_rows_plain(acc, table, perm, lane_base, start, length, 0, k, group,
+                                         curve))
+    p, q = (C.edge_points(n, group, device, curve, seed=s) for s in (2, 3))
+    mask = torch.as_tensor(np.random.default_rng(4).random(n) > 0.25, device=device)
+    max_abs_err(C.masked_add(p, q, mask, group, curve), C.masked_add_plain(p, q, mask, group, curve))
+    x2, y2 = q[:, 0].contiguous(), q[:, 1].contiguous()
+    max_abs_err(C.masked_mixed_add(p, x2, y2, mask, group, curve),
+                C.masked_mixed_add_plain(p, x2, y2, mask, group, curve))
+    max_abs_err(C.point_double(p, group, curve), C.point_double_plain(p, group, curve))
+    return {"lanes": n, "steps": k, "equal": True}
+
+
 def phase_kernels(key: SyntheticKey, z_std, device) -> list[dict]:
     """K1-K4 and K11 of the key's curve against their plain versions at its
     full prove's shapes, and K9, K10 over its scalar field at bench_field's."""
     import torch
 
     from snark_tpu_torch import _native
-    from snark_tpu_torch.fields.limbs import fields_of
     from snark_tpu_torch.ops import curve as C
     from snark_tpu_torch.ops import ntt as N
     from snark_tpu_torch.ops.msm import pick_window_plane_signed, signed_digits
@@ -537,7 +583,7 @@ def phase_kernels(key: SyntheticKey, z_std, device) -> list[dict]:
     pk, curve, fr = key.pk, key.curve, key.fr
     bls = curve.name != "bn254"
     nbits = curve.fr.num_bits
-    fq_mul = imad_per_mul(fields_of(curve)[1].limbs)
+    fr_mul = C.imad_per_mul(fr.limbs)
     curve_src = "snark_tpu_torch/csrc/" + ("curve_bls.cu" if bls else "curve.cu")
     ntt_src = "snark_tpu_torch/csrc/" + ("ntt_bls.cu" if bls else "ntt.cu")
     c = pick_window_plane_signed(z_std.shape[0])
@@ -571,7 +617,7 @@ def phase_kernels(key: SyntheticKey, z_std, device) -> list[dict]:
         # read and written once
         rows.append(kernel_row(_native.counter_name("bucket_madd_rows", curve.name, group),
               curve_src, "snark_tpu/ops/pallas_curve.py:754", ms, pms, err,
-              adds * MULS[f"madd_{group}"] * fq_mul,
+              adds * C.op_imads("madd_rows", group, curve),
               tbl.numel() + perm.numel() * 4 + plan.lanes * (2 * pt_bytes + 12)))
 
         # K2 on the scan's output: one suffix-scan step (stride 1)
@@ -588,7 +634,7 @@ def phase_kernels(key: SyntheticKey, z_std, device) -> list[dict]:
         active = int(mask.sum())
         rows.append(kernel_row(_native.counter_name("masked_add", curve.name, group),
               curve_src, "snark_tpu/ops/pallas_curve.py:716", ms2, pms2, err2,
-              active * MULS[f"add_{group}"] * fq_mul,
+              active * C.op_imads("add", group, curve),
               plan.lanes * (3 * pt_bytes + 1)))
         del out, q, o2, ref2
 
@@ -614,11 +660,14 @@ def phase_kernels(key: SyntheticKey, z_std, device) -> list[dict]:
         active = int(mask.sum())
         el_bytes = pt_bytes // 3
         row = kernel_row(name11, curve_src, "snark_tpu/ops/pallas_curve.py:729", ms11, pms11,
-                         err11, active * (MULS[f"madd_{group}"] - 2 * C.GROUPS[group]) * fq_mul,
+                         err11, active * C.op_imads("madd", group, curve),
                          plan.lanes * (2 * pt_bytes + 1) + active * 2 * el_bytes)
         row["launches"] = launches11
         rows.append(row)
         del o11, ref11, stepped, x2, y2, mask, perm, start, length, lane_base, acc0
+        edge = edge_checks(group, curve, device)
+        for r in rows[-3:]:  # K1, K2, K11
+            r["edge_operands"] = edge
         torch.cuda.empty_cache()
 
     # K3, K4 at the domain size
@@ -636,7 +685,7 @@ def phase_kernels(key: SyntheticKey, z_std, device) -> list[dict]:
     _, pms3 = plain_time(lambda: N.ntt_stage_plain(x, plan.inv_tw, s, n >> (s + 1), False, fr))
     rows.append(kernel_row(_native.counter_name("ntt_stage", curve.name), ntt_src,
           "snark_tpu/ops/ntt_plane.py:158", ms3, pms3, 0,
-          (n // 2) * IMAD_PER_MUL, n * 64 + (1 << s) * 32))
+          (n // 2) * fr_mul, n * 64 + (1 << s) * 32))
 
     for mode in ("mul", "add", "hadamard"):
         o4 = N.field_ew(mode, x, y, plan.coset_scale_rev, plan.z_coset_inv, fr)
@@ -644,7 +693,7 @@ def phase_kernels(key: SyntheticKey, z_std, device) -> list[dict]:
     ms4 = cuda_ms(lambda: N.field_ew("mul", x, y, field=fr))
     _, pms4 = plain_time(lambda: N.field_ew_plain("mul", x, y, field=fr))
     rows.append(kernel_row(_native.counter_name("field_ew", curve.name), ntt_src,
-          "snark_tpu/ops/ntt_plane.py:197", ms4, pms4, 0, n * IMAD_PER_MUL, n * 96))
+          "snark_tpu/ops/ntt_plane.py:197", ms4, pms4, 0, n * fr_mul, n * 96))
     del x, y, plan
     rows += phase_kernels_field16(fr, device)
     return rows
@@ -659,6 +708,7 @@ def phase_kernels_field16(fr, device) -> list[dict]:
 
     from snark_tpu_torch import _native
     from snark_tpu_torch import bench_field as BF
+    from snark_tpu_torch.ops import curve as C
     from snark_tpu_torch.ops import mont16 as M16
     from snark_tpu_torch.ops.ntt import SCALAR_FIELDS
 
@@ -673,7 +723,7 @@ def phase_kernels_field16(fr, device) -> list[dict]:
         err = max_abs_err(fn(a, b, fr), ref)
         row = kernel_row(_native.counter_name(kernel, SCALAR_FIELDS[fr.params.name]),
                          "snark_tpu_torch/csrc/field16.cu", src_line, cuda_ms(lambda: fn(a, b, fr)),
-                         pms, err, n * IMAD_PER_MUL, 3 * n * 4 * a.shape[1])
+                         pms, err, n * C.imad_per_mul(8), 3 * n * 4 * a.shape[1])
         rows.append(row)
     at, bt = a.t().contiguous(), b.t().contiguous()
     out = torch.empty_like(at)
@@ -701,7 +751,8 @@ def phase_kernels_msm(inputs: dict, device) -> tuple[list[dict], dict]:
     curve_src = "snark_tpu_torch/csrc/" + ("curve_bls.cu" if bls else "curve.cu")
     affine_src = "snark_tpu_torch/csrc/" + ("affine_bls.cu" if bls else "affine.cu")
     L = C.limbs_of(curve)
-    fq_mul = imad_per_mul(L)
+    fq_mul = C.imad_per_mul(L)
+    fq_dec = C.imad_per_decode(L)
     for group, inp in inputs.items():
         K = C.GROUPS[group]
         m2 = 1 if K == 1 else 3  # base muls per field mul
@@ -714,19 +765,19 @@ def phase_kernels_msm(inputs: dict, device) -> tuple[list[dict], dict]:
         hc = host_curve(group, curve)
         p = C.points_to_limbs([inp.want], group, device, curve)
         q = C.points_to_limbs([hc.double(hc.generator)], group, device, curve)
-        for kernel, fn, plain, muls, nbytes, src_line in (
+        for kernel, fn, plain, imads, nbytes, src_line in (
             ("point_double", lambda: C.point_double(p, group, curve),
-             lambda: C.point_double_plain(p, group, curve), MULS[f"dbl_{group}"], 2 * pt_bytes,
+             lambda: C.point_double_plain(p, group, curve), C.op_imads("dbl", group, curve), 2 * pt_bytes,
              "snark_tpu/ops/pallas_curve.py:709"),
             ("point_add", lambda: C.point_add(p, q, group, curve),
-             lambda: C.point_add_plain(p, q, group, curve), MULS[f"add_{group}"], 3 * pt_bytes,
+             lambda: C.point_add_plain(p, q, group, curve), C.op_imads("add", group, curve), 3 * pt_bytes,
              "snark_tpu/ops/pallas_curve.py:702"),
         ):
             out = fn()
             ref, pms = plain_time(plain)
             rows.append(kernel_row(
                 name(kernel), curve_src, src_line, cuda_ms(fn, reps=20), pms,
-                max_abs_err(out, ref), muls * fq_mul, nbytes))
+                max_abs_err(out, ref), imads, nbytes))
 
         plan = PlaneMsm(inp.c, curve.fr.num_bits, group, signed=True, affine=True, curve=curve)
         n = inp.n
@@ -744,7 +795,7 @@ def phase_kernels_msm(inputs: dict, device) -> tuple[list[dict], dict]:
         del pden, pcls
         rows.append(kernel_row(
             name("affine_phase1"), affine_src, "snark_tpu/ops/msm_affine.py:329", ms, pms, err,
-            M * 4 * K * fq_mul, M * (2 * rb + 2 + el_bytes + 1)))
+            M * 4 * K * fq_dec, M * (2 * rb + 2 + el_bytes + 1)))
 
         h = M // 2
         a, b = den[:h], den[h:]
@@ -776,12 +827,12 @@ def phase_kernels_msm(inputs: dict, device) -> tuple[list[dict], dict]:
         extra[name("level0_classes")] = dict(
             zip(("add", "double", "dead", "copy_l", "copy_r"), counts))
         extra[name("level0_pairs")] = M
-        # decode 4K and encode 2K base muls per pair; λ, λ², λ·(x1 − x3) per
-        # computed pair; x1² per double
-        muls = M * 6 * K + (3 * computed + counts[A.DOUBLE]) * m2
+        # decode 4K steps and encode 2K base muls per pair; λ, λ², λ·(x1 − x3)
+        # per computed pair; x1² per double
+        muls = M * 2 * K + (3 * computed + counts[A.DOUBLE]) * m2
         rows.append(kernel_row(
             name("affine_phase3"), affine_src, "snark_tpu/ops/msm_affine.py:340", ms, pms, err,
-            muls * fq_mul, M * (2 * rb + 2 + el_bytes + 1 + rb)))
+            muls * fq_mul + M * 4 * K * fq_dec, M * (2 * rb + 2 + el_bytes + 1 + rb)))
         del blk_rows, sgn, den, cls, dinv, out, ref
         torch.cuda.empty_cache()
     return rows, extra

@@ -36,8 +36,9 @@ does not read the variable.
 Each line with a counterpart gives ms a call, M adds/s with adds = n·W as
 the script counts them, the ratio to `full`, the peak device memory and
 the bound of its scan: the rows it adds (the nonzero digits) times its
-products (`PRODUCTS`: 15, 15, 8, 13) times 264 32-bit multiply-adds over
-1.67e13/s, or its bytes (a row and a payload word an add, the flag byte
+products (`PRODUCTS`: 11, 11, 5, 11) times 264 32-bit multiply-adds and
+its row decodes (`DECODES`: 2, 2, 2, 0) times 17, over 1.67e13/s, or its
+bytes (a row and a payload word an add, the flag byte
 and the payload for `nodecode`; the accumulators and runs once a lane)
 over 3.35e12/s, whichever is longer; the sort and the folds are left out.
 On the CPU, `run` computes the lines with the plain versions, checks
@@ -57,7 +58,7 @@ from . import _native
 from . import bench as B
 from .bench_vpu_peak import PEAK_IMAD, bound_ms
 from .ops import curve as C
-from .ops.madd_parts import PRODUCTS
+from .ops.madd_parts import DECODES, PRODUCTS
 from .ops.msm_plane import PlaneMsm
 
 C_WINDOW = 13
@@ -71,7 +72,6 @@ NO_COUNTERPART = {
            "on tensor cores against scalar FMAs on the card",
 }
 NO_COUNTERPART["sweep1"] = NO_COUNTERPART["sweep2"]
-IMAD_PER_MUL = 264  # one 8-limb CIOS product (csrc/field.cuh)
 
 
 def kernel_of(part: str) -> str:
@@ -85,7 +85,9 @@ def scan_bound(part: str, scan_adds: int, lanes: int) -> tuple[float, str]:
     row = 1 if part == "nodecode" else C.row_bytes("g1")
     point = 3 * C.limbs_of() * 4
     nbytes = scan_adds * (row + 4) + lanes * (2 * point + 12)
-    return bound_ms(scan_adds * PRODUCTS[part] * IMAD_PER_MUL, PEAK_IMAD, nbytes)
+    L = C.limbs_of()
+    imads = PRODUCTS[part] * C.imad_per_mul(L) + DECODES[part] * C.imad_per_decode(L)
+    return bound_ms(scan_adds * imads, PEAK_IMAD, nbytes)
 
 
 def _line(part: str, inp: B.BenchInputs, iters: int, scan_adds: int) -> dict:

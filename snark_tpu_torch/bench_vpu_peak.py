@@ -82,9 +82,6 @@ UNIT = {
 PEAK_FP32 = 132 * 128 * 1.98e9
 PEAK_IMAD = 132 * 64 * 1.98e9
 PEAK_BYTES = 3.35e12
-# K1's work per mixed add in G1: 13 products of RCB15 Alg 8 and 2 of the
-# row decode, 264 multiply-adds each (8-limb CIOS)
-MADD_G1_IMADS = 15 * 264
 # each line runs this long before it is timed: an idle card's clocks need
 # milliseconds to rise, longer than a line's few timed calls
 WARMUP_S = 0.1
@@ -291,7 +288,7 @@ def run(
         lambda out: tiles_equal(out, POOL),
         lambda out: C.limbs_to_points(out[:POOL], "g1", BN254)
         == [hc.scalar_mul(pt, R) for pt in pool],
-    ], madd_lanes, R * madd_lanes * MADD_G1_IMADS, PEAK_IMAD,
+    ], madd_lanes, R * madd_lanes * C.op_imads("madd_rows", "g1", BN254), PEAK_IMAD,
         table.numel() + 4 * 4 * madd_lanes + 2 * acc0.numel() * 4)
 
     name = torch.cuda.get_device_name(device) if cuda else "cpu"

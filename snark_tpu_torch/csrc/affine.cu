@@ -35,15 +35,16 @@
 // N = 8 for BN254, 12 for BLS12-381); classes one u8 per pair; points are
 // (x, y) of K-component elements.
 //
-// Bound (H100): per BN254 G1 pair, K6 does 4 Montgomery muls (the decode)
-// on 140 bytes read and 33 written, about 6 multiply-adds per byte; K8 does
-// 10 (decode 4, encode 2, the add 4, the square of a double aside) on 173
-// read and 69 written, about 11 per byte; K7 one mul on 64 bytes read and
-// 32 written, 2.75 per byte. The card does 16.7e12 / 3.35e12 = 5 per byte,
-// so K6 and K8 are bound by operations and K7 by bytes. BLS12-381 G1 has
-// 588 multiply-adds a product on rows of 101 bytes and elements of 48:
-// K6 9.3 and K8 16.6 per byte, K7 4.1 (bytes); its G2 doubles the bytes
-// and triples the products. The design is one thread per pair with the
+// Bound (H100): per BN254 G1 pair, K6 decodes 4 row components (one
+// 16-bit reduction step of 17 multiply-adds each, curve.cuh) on 140 bytes
+// read and 33 written, 0.4 multiply-adds per byte; K8 does the same decode
+// and 6 Montgomery muls (encode 2, the add 4, the square of a double aside)
+// on 173 read and 69 written, about 7 per byte; K7 one mul on 64 bytes read
+// and 32 written, 2.75 per byte. The card does 16.7e12 / 3.35e12 = 5 per
+// byte, so K8 is bound by operations and K6 and K7 by bytes. BLS12-381 G1
+// has 588 multiply-adds a product and 25 a decode on rows of 101 bytes and
+// elements of 48: K6 0.4 and K8 10 per byte, K7 4.1 (bytes); its G2
+// doubles the bytes and triples the products. The design is one thread per pair with the
 // pair's two rows read byte by byte and all arithmetic in registers (the
 // 12-limb product a called function, as in K1). The root inverse runs one
 // lane through the square-and-multiply chain of q - 2, one square per bit

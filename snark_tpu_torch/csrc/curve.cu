@@ -33,22 +33,36 @@
 // whose flag is 0 (identity) leaves the lane as it is, which is adding the
 // identity. A negative digit negates Y.
 //
-// Bound (H100): operations. A BN254 G1 mixed add is 13 Montgomery muls
-// plus 2 for the row decode, 15 * 264 = 3,960 32-bit multiply-adds, against
-// 73 bytes gathered per step (4 of payload, 69 of row): about 54
-// multiply-adds per byte, far above the card's 16.7e12 / 3.35e12 = 5 per
-// byte. G2 is about 3x the multiplies on twice the bytes. BLS12-381 G1 is
-// 15 * 588 = 8,820 multiply-adds on 105 bytes (84 per byte), G2 43 * 588 on
-// 205. The BLS12-381 G2 accumulator alone is 72 words, so that kernel
-// spills past the 255-register cap; the build log gives its spill bytes.
-// K2 (14 muls on 192 bytes read and 96 written per BN254 G1 lane) and K5
-// (9 muls on 96 bytes read and 96 written) are bound the same way, and so
-// is K11 (13 muls on 96 + 64 bytes read and 96 written per BN254 G1 lane). The design therefore keeps every lane's
-// accumulator in registers for the whole run (one launch runs all k_steps),
-// touches device memory only for the gathered row, and keeps the field core
-// simple; wide-multiply scheduling and batching of the decode are later
-// work. The Horner combine runs K5 and K2 on one lane, c + 1 launches per
-// window: there launch latency, not arithmetic, sets the time.
+// Bound (H100): operations. A BN254 G1 mixed add is 11 Montgomery muls
+// (Alg 8's 13, less the two by 3b = 9, which are additions) and 2 row
+// decodes of one 16-bit reduction step each: 11 * 264 + 2 * 17 = 2,938
+// 32-bit multiply-adds, against 73 bytes gathered per step (4 of payload,
+// 69 of row): about 40 multiply-adds per byte, far above the card's
+// 16.7e12 / 3.35e12 = 5 per byte. BN254 G2 is 39 base muls (3b = 3 / (9 +
+// u) stays a product) and 4 decodes on twice the bytes. BLS12-381 G1 is
+// 11 * 588 + 2 * 25 = 6,518 multiply-adds on 105 bytes, G2 33 * 588 +
+// 4 * 25 on 205 (3b = 12 (1 + u): additions). K2 (12 muls on 192 bytes read
+// and 96 written per BN254 G1 lane), K5 (8 muls on 96 bytes read and 96
+// written) and K11 (11 muls on 96 + 64 bytes read and 96 written) are
+// bound the same way.
+//
+// The design keeps every lane's accumulator in registers for the whole run
+// (one launch runs all k_steps) and touches device memory only for the
+// gathered row. The products are field.cuh's carry chains: written with
+// 64-bit sums, a product is about 650 instructions, most of them carry
+// adds, and K1 is bound by the integer instruction rate; as chains it is
+// 4N^2 + 5N - 2 instructions (294 at N = 8, 634 at N = 12), 4N^2 + N of
+// them multiply-adds. Between products the base-field values stay below
+// 2q (field.cuh, lazy) and are reduced once, where they are stored; 3b
+// multiplies by additions where it is small, and a row component decodes
+// by one 16-bit reduction step. The BLS12-381 G2 kernels hold 72 words of
+// accumulator, or two 72-word operands: K1 G2 spills past the 255-register
+// cap (the build log gives the bytes), and K2 in G2 reads its operands'
+// coordinates from memory at each use (curve.cuh MemPoint) instead of
+// holding them. The 12-limb products and those of Fq2 are calls (field.cuh
+// mont_mul_call, which says why); the BN254 G1 kernels inline theirs. The
+// Horner combine runs K5 and K2 on one lane, c + 1 launches per window:
+// there launch latency, not arithmetic, sets the time.
 
 #include "curve_kernels.cuh"
 

@@ -50,9 +50,17 @@ __global__ void masked_add_kernel(const uint32_t* __restrict__ p,
   constexpr int LW = 3 * Curve<E>::W;
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= lanes) return;
-  Point<E> a = load_point<E>(p + (size_t)l * LW);
-  if (mask == nullptr || mask[l]) a = padd(a, load_point<E>(q + (size_t)l * LW));
-  store_point<E>(out + (size_t)l * LW, a);
+  const size_t at = (size_t)l * LW;
+  if (mask != nullptr && !mask[l]) {
+    store_point<E>(out + at, load_point<E>(p + at));
+  } else if constexpr (Curve<E>::K == 2) {
+    // G2 reads its operands at each use (curve.cuh MemPoint); G1's fit in
+    // registers, and a one-lane launch (the Horner combine) would wait on
+    // each read
+    store_point<E>(out + at, padd(MemPoint<E>{p + at}, MemPoint<E>{q + at}));
+  } else {
+    store_point<E>(out + at, padd(load_point<E>(p + at), load_point<E>(q + at)));
+  }
 }
 
 // K11: mask ? p + (x2, y2) : p, q = (x2, y2) affine and not the identity

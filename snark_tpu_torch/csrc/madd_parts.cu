@@ -24,10 +24,11 @@
 // SNARK_TPU_MSM_BATCHED=0; by default the reference's G1 rows kernel takes
 // _madd_mixed_body_batched_g1 and never calls the swapped body).
 //
-// Bound (H100): operations, as K1. Products a step, the row decode's 2
-// included: nosub 15, halfmul 8, nodecode 13 (no decode), each 264 32-bit
-// multiply-adds, against 73 bytes gathered a step (row and payload;
-// nodecode reads the flag byte and the payload, 5).
+// Bound (H100): operations, as K1. Montgomery products a step (each product
+// by 3b is additions): nosub 11, halfmul 5, nodecode 11, each 264 32-bit
+// multiply-adds, and 2 row decodes of 17 (none in nodecode), against 73
+// bytes gathered a step (row and payload; nodecode reads the flag byte and
+// the payload, 5).
 
 #include "curve_kernels.cuh"
 

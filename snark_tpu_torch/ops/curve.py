@@ -106,7 +106,7 @@ def rows_to_points(rows: np.ndarray, group: str = "g1", curve: CurveParams = BN2
 
 
 def points_to_limbs(
-    points, group: str = "g1", device="cpu", curve: CurveParams = BN254
+    points, group: str = "g1", device="cuda", curve: CurveParams = BN254
 ) -> torch.Tensor:
     """Host affine points (None = identity) -> (N, 3, K, L) projective
     Montgomery limbs (Z = 1, identity (0, 1, 0))."""
@@ -147,6 +147,118 @@ def limbs_to_points(t: torch.Tensor, group: str = "g1", curve: CurveParams = BN2
             zi = f2.inv(z)
             out.append((f2.mul(x, zi), f2.mul(y, zi)))
     return out
+
+
+# ---------------------------------------------------------------------------
+# work counts: the 32-bit multiply-adds the kernels' bounds count
+# ---------------------------------------------------------------------------
+
+
+def imad_per_mul(limbs: int) -> int:
+    """One L-limb CIOS product (`csrc/field.cuh`): 2L² for a·b, 2L² for
+    m·p and L for m; 264 at L = 8, 588 at L = 12."""
+    return 4 * limbs * limbs + limbs
+
+
+def imad_per_decode(limbs: int) -> int:
+    """One row component's 16-bit reduction step (`csrc/curve.cuh`): the L
+    low and L high halves of m·q, and m."""
+    return 2 * limbs + 1
+
+
+# Base-field products of RCB15 Alg 8 (madd), 7 (add) and 9 (dbl), and how
+# many of them multiply by 3b
+FORMULA_PRODUCTS = {"madd": (13, 2), "add": (14, 2), "dbl": (9, 1)}
+
+
+def small_b3(group: str, curve: CurveParams = BN254) -> bool:
+    """Whether the kernels multiply by 3b with additions: 9 in BN254 G1, 12
+    in BLS12-381 G1 and 12·(1 + u) in its G2; BN254 G2's 3/(9 + u) is a
+    product."""
+    return not (curve.name == "bn254" and group == "g2")
+
+
+def op_imads(op: str, group: str, curve: CurveParams = BN254) -> int:
+    """32-bit multiply-adds of one curve operation as the kernels compute
+    it: "madd" (Alg 8, K11), "madd_rows" (Alg 8 and the decode of the row,
+    K1), "add" (Alg 7, K2), "dbl" (Alg 9, K5). An Fq2 product is 3 base
+    products (Karatsuba)."""
+    n, by_b3 = FORMULA_PRODUCTS["madd" if op == "madd_rows" else op]
+    K, L = GROUPS[group], limbs_of(curve)
+    products = (n - by_b3 * small_b3(group, curve)) * (1 if K == 1 else 3)
+    decodes = 2 * K if op == "madd_rows" else 0
+    return products * imad_per_mul(L) + decodes * imad_per_decode(L)
+
+
+# ---------------------------------------------------------------------------
+# edge operands: limb patterns at the edges of the field core's chains
+# ---------------------------------------------------------------------------
+
+
+def edge_values(p: int, limbs: int) -> list[int]:
+    """Raw limb values in [0, p) at the edges of the carry chains: 0, 1, 2,
+    p − 1, p − 2, R mod p, (p ± 1)/2, p less its low limb, the largest value
+    whose limbs below the top one are all ones, p's top limb less one over
+    all-ones limbs, all-ones and zero limbs in turn, and powers of 2^32."""
+    top = p >> (32 * (limbs - 1))
+    low_ones = (1 << (32 * (limbs - 1))) - 1
+    turns = sum(0xFFFFFFFF << (64 * k) for k in range(limbs // 2))  # limb L−1 is 0
+    vals = {
+        0, 1, 2, p - 1, p - 2, (1 << (32 * limbs)) % p, (p - 1) // 2, (p + 1) // 2,
+        p - (p & 0xFFFFFFFF), low_ones, ((top - 1) << (32 * (limbs - 1))) + low_ones, turns,
+        1 << 32, 1 << (32 * (limbs - 1)),
+    }
+    assert all(0 <= v < p for v in vals)
+    return sorted(vals)
+
+
+def edge_words(p: int, limbs: int) -> list[int]:
+    """edge_values and raw words at or above p, below R = 2^(32·L): what a
+    row component may hold for the kernels' decode (all ones, p, 2p − 1,
+    R − p)."""
+    r = 1 << (32 * limbs)
+    return sorted(set(edge_values(p, limbs)) | {p, p + 1, 2 * p - 1, 2 * p, r - p, r - 2, r - 1})
+
+
+def edge_points(n: int, group: str, device, curve: CurveParams = BN254, seed: int = 0):
+    """(n, 3, K, L) int32 points whose every component is an edge value of
+    Fq, drawn from a seeded generator. The complete formulas are defined
+    on any field elements, so the points need not lie on the curve."""
+    rng = np.random.default_rng(seed)
+    fq = fields_of(curve)[1]
+    vals = edge_values(fq.p, fq.limbs)
+    pick = rng.integers(0, len(vals), n * 3 * GROUPS[group])
+    return fq.tensor([vals[i] for i in pick], device, mont=False).reshape(
+        n, 3, GROUPS[group], fq.limbs)
+
+
+def edge_scan(n: int, k: int, group: str, device, curve: CurveParams = BN254, seed: int = 0):
+    """K1's operands from edge patterns: n lanes of edge_points accumulators,
+    each scanning up to k rows of a table whose components are edge_words
+    (some rows the identity), signs drawn at random. -> (acc, table, perm,
+    lane_base, start, length)."""
+    rng = np.random.default_rng(seed)
+    fq = fields_of(curve)[1]
+    K, L, D = GROUPS[group], fq.limbs, row_digits(curve)
+    words = edge_words(fq.p, L)
+    rows = 4 * n
+    table = np.zeros((rows, row_bytes(group, curve)), np.uint8)
+    for r, pick in enumerate(rng.integers(0, len(words), (rows, 2 * K))):
+        raw = b"".join(words[i].to_bytes(4 * L, "little") + b"\0\0" for i in pick)
+        table[r, :-1] = np.frombuffer(raw, np.uint8)
+    table[:, -1] = rng.random(rows) > 0.1  # about a tenth identity rows
+    pay = rng.integers(0, rows, n * k, dtype=np.int64) | (rng.integers(0, 2, n * k) << 31)
+    length = rng.integers(0, k + 1, n)
+    length[: min(n, 4)] = k
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int64).astype(np.uint32).view(np.int32), device=device)  # noqa: E731
+    return (
+        edge_points(n, group, device, curve, seed + 1),
+        torch.as_tensor(table, device=device),
+        i32(pay),
+        torch.zeros(n, dtype=torch.int32, device=device),
+        i32(np.arange(n) * k),
+        i32(length),
+    )
 
 
 def identity(lanes: int, group: str, device, curve: CurveParams = BN254) -> torch.Tensor:
@@ -371,6 +483,13 @@ def _check_points(t: torch.Tensor, group: str, name: str, curve: CurveParams) ->
     return t.shape[0]
 
 
+def _check_aligned(group: str, *tensors: torch.Tensor) -> None:
+    """K2 reads G2 points as 16-byte vectors (`csrc/curve.cuh` MemPoint)."""
+    for t in tensors:
+        if group == "g2" and t.data_ptr() % 16:
+            raise ValueError("K2's G2 points must start on a 16-byte boundary")
+
+
 def _check_vec(t: torch.Tensor, n: int, name: str, dtype=torch.int32) -> None:
     if t.dtype != dtype or t.dim() != 1 or (n >= 0 and t.shape[0] != n):
         raise ValueError(f"{name}: want {dtype} ({n},), got {t.dtype} {tuple(t.shape)}")
@@ -441,6 +560,7 @@ def masked_add(
     if p.device.type == "cpu":
         return masked_add_plain(p, q, mask, group, curve)
     _native.require_cuda(p, q, mask)
+    _check_aligned(group, p, q)
     out = torch.empty_like(p)
     _launch(
         "masked_add", "masked_add", curve, group,
@@ -487,6 +607,7 @@ def point_add(
     if p.device.type == "cpu":
         return point_add_plain(p, q, group, curve)
     _native.require_cuda(p, q)
+    _check_aligned(group, p, q)
     out = torch.empty_like(p)
     _launch(
         "masked_add", "point_add", curve, group,

@@ -37,8 +37,10 @@ from ..fields.params import BN254, CurveParams
 from . import curve as C
 
 PARTS = ("full",) + _native.MADD_PARTS
-# Montgomery products of one step, the row decode's 2 included
-PRODUCTS = {"full": 15, "nosub": 15, "halfmul": 8, "nodecode": 13}
+# Montgomery products of one step (each product by 3b is additions) and the
+# row components it decodes
+PRODUCTS = {"full": 11, "nosub": 11, "halfmul": 5, "nodecode": 11}
+DECODES = {"full": 2, "nosub": 2, "halfmul": 2, "nodecode": 0}
 
 
 def _check_part(part: str) -> int:

@@ -67,7 +67,7 @@ def check_double(group):
     P = points(hc, 1)
     dbl = make_point_double(J_BLS, tile=LANES, interpret=True, group=group)
     want = P
-    got = C.points_to_limbs(P, group, curve=BLS12_381)
+    got = C.points_to_limbs(P, group, "cpu", BLS12_381)
     for _ in range(3):
         want = jax_apply(dbl, group, want)
         got = C.point_double(got, group, BLS12_381)
@@ -88,8 +88,8 @@ def check_add(group, jax_too: bool = True):
     if jax_too:
         add = make_point_add(J_BLS, tile=LANES, interpret=True, group=group)
         assert jax_apply(add, group, P, Q) == want
-    p = C.points_to_limbs(P, group, curve=BLS12_381)
-    q = C.points_to_limbs(Q, group, curve=BLS12_381)
+    p = C.points_to_limbs(P, group, "cpu", BLS12_381)
+    q = C.points_to_limbs(Q, group, "cpu", BLS12_381)
     got = C.point_add(p, q, group, BLS12_381)
     assert C.limbs_to_points(got, group, BLS12_381) == want
 

@@ -119,9 +119,12 @@ def test_bls_cuda_constants_match_params():
     # the Fermat exponent of the affine tree's inverse, and its bit length
     assert value("kBlsQMinus2", 12) == q - 2
     assert n0("BlsFqParams", r"kPm2Bits = (\d+);") == (q - 2).bit_length()
-    assert value("kBlsRowToMont", 12) == 1 << 368  # x·2^400 -> x·2^384
+    assert value("kBlsFqP2", 12) == 2 * q  # the lazy bound of Fq
     assert value("kBlsMontToRow", 12) == (1 << 400) % q
     assert value("kBlsOneMont", 12) == BLS_FQ.one
-    assert value("kBlsB3G1", 12) == BLS_FQ.to_mont(3 * BLS12_381.b)
-    b3 = [value("kBlsB3G2", 12, 12 * c) for c in (0, 1)]
-    assert b3 == [BLS_FQ.to_mont(3 * v) for v in BLS12_381.b2]
+    # 3b = 12 in G1 and 12 (1 + u) in G2, by additions in the kernels
+    assert n0("CurveConsts<BlsFqParams>", r"kB3G1 = (\d+);") == 3 * BLS12_381.b
+    assert [3 * v for v in BLS12_381.b2] == [3 * BLS12_381.b] * 2
+    with open(os.path.join(CSRC, "curve.cuh")) as fh:
+        block = fh.read().split("struct CurveConsts<BlsFqParams> {")[1].split("};")[0]
+    assert "kB3G2Small = true;" in block

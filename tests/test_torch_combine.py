@@ -59,7 +59,7 @@ def test_point_double_matches_jax(group):
     P = points(hc, 1)
     dbl = make_point_double(J_BN254, tile=LANES, interpret=True, group=group)
     want = P
-    got = C.points_to_limbs(P, group)
+    got = C.points_to_limbs(P, group, "cpu")
     for _ in range(3):
         want = jax_apply(dbl, group, want)
         got = C.point_double(got, group)
@@ -79,6 +79,6 @@ def test_point_add_matches_jax(group):
     P[3] = None
     add = make_point_add(J_BN254, tile=LANES, interpret=True, group=group)
     want = jax_apply(add, group, P, Q)
-    got = C.point_add(C.points_to_limbs(P, group), C.points_to_limbs(Q, group), group)
+    got = C.point_add(C.points_to_limbs(P, group, "cpu"), C.points_to_limbs(Q, group, "cpu"), group)
     assert C.limbs_to_points(got, group) == want
     assert want == [hc.add(a, b) for a, b in zip(P, Q)]

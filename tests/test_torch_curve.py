@@ -70,7 +70,7 @@ def test_masked_add_complete_matches_jax(group):
     mask = [k % 3 != 1 for k in range(128)]
     mask[:10] = [True] * 10
     got = C.limbs_to_points(
-        C.masked_add(C.points_to_limbs(P, group), C.points_to_limbs(Q, group),
+        C.masked_add(C.points_to_limbs(P, group, "cpu"), C.points_to_limbs(Q, group, "cpu"),
                      torch.as_tensor(mask), group),
         group,
     )
@@ -83,7 +83,7 @@ def test_masked_add_doubling_chain(group):
     """P + P through the complete formula, repeatedly: [2^k]P."""
     hc = HOSTS[group]
     P = [hc.scalar_mul(hc.generator, k + 3) for k in range(16)]
-    t = C.points_to_limbs(P, group)
+    t = C.points_to_limbs(P, group, "cpu")
     mask = torch.ones(16, dtype=torch.bool)
     for _ in range(3):
         t = C.masked_add(t, t, mask, group)
@@ -116,7 +116,7 @@ def test_bucket_madd_rows_matches_jax(group):
 
     perm = torch.as_tensor(np.arange(n) | (sign.astype(np.int64) << 31)).to(torch.int32)
     got = C.bucket_madd_rows(
-        C.points_to_limbs(P, group), torch.as_tensor(rows), perm,
+        C.points_to_limbs(P, group, "cpu"), torch.as_tensor(rows), perm,
         torch.zeros(n, dtype=torch.int32), torch.arange(n, dtype=torch.int32),
         torch.as_tensor(active.astype(np.int32)), 0, 1, group,
     )

@@ -166,16 +166,27 @@ def _cuda_constants():
     return array, scalar
 
 
+def _curve_consts_block(params):
+    """The body of curve.cuh's CurveConsts<params> specialisation."""
+    with open(os.path.join(PORT, "csrc", "curve.cuh")) as fh:
+        src = fh.read()
+    block = src[src.index(f"struct CurveConsts<{params}> {{") :]
+    return block[: block.index("};")]
+
+
 def test_cuda_constants_match_params():
     array, scalar = _cuda_constants()
     r, q = BN254.fr.modulus, BN254.fq.modulus
     assert array("kFrP")[0] == r and array("kFqP")[0] == q
     assert scalar("FrParams") == FR.n0 and scalar("FqParams") == FQ.n0
-    assert array("kRowToMont")[0] == 1 << 240
+    assert array("kFqP2")[0] == 2 * q  # the lazy bound of Fq
     assert array("kMontToRow")[0] == (1 << 272) % q
     assert array("kOneMont")[0] == FQ.one
     assert array("kQMinus2")[0] == q - 2
-    assert array("kB3G1")[0] == FQ.to_mont(3 * BN254.b)
+    # G1's 3b is an integer the kernels multiply by with additions
+    consts = _curve_consts_block("FqParams")
+    assert int(re.search(r"kB3G1 = (\d+);", consts).group(1)) == 3 * BN254.b
+    assert "kB3G2Small = false;" in consts
     words = array("kB3G2")[1]
     b3 = [sum(w << (32 * i) for i, w in enumerate(words[8 * c : 8 * c + 8])) for c in (0, 1)]
     assert b3 == [FQ.to_mont(3 * v) for v in BN254.b2]

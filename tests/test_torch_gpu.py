@@ -12,6 +12,7 @@ import json
 import os
 import random
 
+import numpy as np
 import pytest
 import torch
 
@@ -374,6 +375,30 @@ def test_masked_mixed_add_matches_plain(cuda, group, curve):
     assert C.limbs_to_points(got, group, curve) == [
         hc.add(a, b) if m else a for a, b, m in zip(P, Q, mask.tolist())
     ]
+
+
+@pytest.mark.parametrize("curve", [BN254, BLS12_381], ids=["bn254", "bls12_381"])
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_curve_kernels_on_edge_operands(cuda, group, curve):
+    """K1, K2, K11 and K5 on accumulators and affine operands made of edge
+    limb patterns (0, 1, p − 1, all-ones limbs; rows whose components run
+    up to R − 1), not curve points: the formulas hold for any field
+    elements, and the carry chains meet their extremes. Equal to the plain
+    versions exactly."""
+    n, k = 512, 8
+    acc, table, perm, lane_base, start, length = C.edge_scan(n, k, group, cuda, curve, seed=1)
+    assert torch.equal(
+        C.bucket_madd_rows(acc, table, perm, lane_base, start, length, 0, k, group, curve),
+        C.bucket_madd_rows_plain(acc, table, perm, lane_base, start, length, 0, k, group, curve),
+    )
+    p, q = (C.edge_points(n, group, cuda, curve, seed=s) for s in (2, 3))
+    mask = torch.as_tensor(np.random.default_rng(4).random(n) > 0.25, device=cuda)
+    assert torch.equal(C.masked_add(p, q, mask, group, curve),
+                       C.masked_add_plain(p, q, mask, group, curve))
+    x2, y2 = q[:, 0].contiguous(), q[:, 1].contiguous()
+    assert torch.equal(C.masked_mixed_add(p, x2, y2, mask, group, curve),
+                       C.masked_mixed_add_plain(p, x2, y2, mask, group, curve))
+    assert torch.equal(C.point_double(p, group, curve), C.point_double_plain(p, group, curve))
 
 
 @pytest.mark.parametrize("field", [BN254.fr, BLS12_381.fr], ids=["bn254_fr", "bls12_381_fr"])

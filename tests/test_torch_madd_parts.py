@@ -126,7 +126,7 @@ def port_values(part, P, Qs, sign, length):
     idx = np.arange(STEPS)[:, None] * LANES + np.arange(LANES)[None, :]  # row of (step, lane)
     perm = torch.as_tensor((idx | (sign.astype(np.int64) << 31)).T.reshape(-1)).to(torch.int32)
     out = MP.bucket_madd_rows_part(
-        part, C.points_to_limbs(P, "g1"), table, perm, torch.zeros(LANES, dtype=torch.int32),
+        part, C.points_to_limbs(P, "g1", "cpu"), table, perm, torch.zeros(LANES, dtype=torch.int32),
         torch.arange(LANES, dtype=torch.int32) * STEPS, torch.as_tensor(length, dtype=torch.int32),
         0, STEPS,
     )
