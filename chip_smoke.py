@@ -14,10 +14,19 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    stores, instructions, carry adds beside multiply-adds (`curve_kernels`).
    setup: the synthetic key of prove_full and the MSM bench's inputs.
 2. kernels: K1-K4 against their plain PyTorch versions on the card, at the
-   shapes of the 2^18 prove below, and K5 (`point_double`), K2 without a
-   mask (`point_add`), K6-K8 (the batch-affine tree) at the shapes of the
-   MSM bench below (the Horner combine's one lane; level 0 of the affine
-   tree at 2^20 points for G1, 2^18 for G2), exact equality; each kernel's
+   shapes of the 2^18 prove below, and K18 (`horner_combine`, the whole
+   Horner combine in one launch), K5 (`point_double`), K2 without a mask
+   (`point_add`), K6-K8 (the batch-affine tree) at the shapes of the MSM
+   bench below (K18 on the bench MSM's 20 window totals at c = 13 and on
+   the edge totals of `ops/curve.py` horner_cases; K5 and K2 on one lane,
+   and as the Horner chain K18 replaced, which must equal K18: no path
+   runs them any more, so their rows report 0 launches on the main path,
+   `on_path` false and that chain's counts as `chain_launches`; level 0 of
+   the affine tree at 2^20 points for G1, 2^18 for G2), exact equality;
+   K18's row adds its launches in one whole MSM (K18 once, K5 and K2
+   unmasked never) and its latency bound (`latency_bound_ms`,
+   `horner_bound_ms`, on the product latency K18's latency probe measures
+   on the card, `chain_latency`); each kernel's
    time (CUDA events, warmed up), its plain version's time and its bound;
    the kernel line adds each kernel's ptxas registers and spills. The same
    phase holds K9 and K10 (the standalone 16-bit-limb products) at 2^20
@@ -49,14 +58,14 @@ Phases, each printing one JSON line with its wall seconds as it ends:
 6. msm_bench: `snark_tpu_torch.bench` on BN254 G1 at 2^20 points, signed
    c = 13, with the scan and with the batch-affine tree; G2 at 2^18 both
    ways; G1 unsigned c = 12 with the scan; every result equal to the pool
-   oracle. Launch counts of this phase go into the kernel line for K5-K8
-   and K2 without a mask.
+   oracle. Launch counts of this phase go into the kernel line for K6-K8
+   and K18.
 7. setup_bls, kernels_bls: the BN254 data is freed, the synthetic
    BLS12-381 key of prove_full_bls and the BLS12-381 MSM bench's inputs
    are made, and the BLS12-381 instances of K1-K4 (K1 and K2 in G1 and G2
    over the 12-limb Fq, K3 and K4 over BLS12-381 Fr) are held against their
-   plain versions at the shapes of that prove, those of K5, K2 without
-   a mask and K6-K8 at the shapes of msm_bench_bls, and K9-K11 as in
+   plain versions at the shapes of that prove, those of K18, K5, K2
+   without a mask and K6-K8 at the shapes of msm_bench_bls, and K9-K11 as in
    phase 2 (K9, K10 over BLS12-381 Fr; K11 at the 2^20 prove's 294,912
    lanes; the edge operands through the 12-limb product).
 8. prove_fixture_bls: proves the committed BLS12-381 MulChain(7, 12) key
@@ -75,8 +84,8 @@ Phases, each printing one JSON line with its wall seconds as it ends:
 11. msm_bench_bls: `snark_tpu_torch.bench` on BLS12-381 G1 at 2^20 points
    and G2 at 2^18, signed c = 13, with the scan and with the batch-affine
    tree, every result equal to the pool oracle. Launch counts of this
-   phase go into the kernel line for the BLS12-381 instances of K5-K8 and
-   K2 without a mask.
+   phase go into the kernel line for the BLS12-381 instances of K6-K8 and
+   K18.
 12. bench_field: `snark_tpu_torch.bench_field.run` at 2^20 elements of
    BN254 Fr and of BLS12-381 Fr, all five lines (the torch `DeviceField`
    and `DeviceFieldF32` products, K10, K9, K4 mode 0), each line's ms per
@@ -145,6 +154,12 @@ POOL = 64
 # capability 9.0) x 132 SMs x 1.98 GHz boost = 1.6727e13 per second.
 PEAK_BYTES = 3.35e12
 PEAK_IMAD = 132 * 64 * 1.98e9
+# K18's latency bound (horner_bound_ms) takes the latency of one product
+# from the card: LATENCY_STEPS dependent steps of K18's latency probe
+# (csrc/curve_kernels.cuh chain_latency_kernel) on one thread, timed with
+# the SM clock, in each mode: the product's multiply-add pair, and the
+# base field's product.
+LATENCY_STEPS = 4096
 
 
 
@@ -152,6 +167,9 @@ PEAK_IMAD = 132 * 64 * 1.98e9
 # snark_tpu_torch/ops/curve.py: imad_per_mul (one CIOS product),
 # imad_per_decode (one 16-bit row decode step) and op_imads (a curve
 # operation, 3b by additions where it is small).
+# K5 and K2 without a mask: no path calls them since K18 took over the
+# combine; their rows report 0 launches on the main path
+OFF_PATH = ("point_double_", "point_add_")
 MIXED_SCAN_STEPS = 4  # scan steps run through K11 in the kernels phases
 EDGE_LANES, EDGE_STEPS = 4096, 8  # the kernels phases' edge-operand checks
 BENCH_FIELD_LOG_N = 20
@@ -533,6 +551,66 @@ def scan_step_operands(tbl, perm, lane_base, start, length, i: int, group: str, 
     return x2, y2, mask
 
 
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def chain_latency(curve, device) -> dict:
+    """SM clock cycles of one dependent step of K18's latency probe, on one
+    thread of the card, in the curve's base field: `pair_cycles`, the
+    product's multiply-add pair (mad.lo.cc, madc.hi.cc); `product_cycles`,
+    one base-field product as K18's lanes run it. The least of two runs
+    each."""
+    import torch
+
+    from snark_tpu_torch import _native
+    from snark_tpu_torch.fields.limbs import fields_of
+
+    fq = fields_of(curve)[1]
+    rng = random.Random(12)
+    x = fq.tensor([rng.randrange(fq.p) for _ in range(2)], device)
+    out = torch.empty(fq.limbs, dtype=torch.int32, device=device)
+    cycles = torch.zeros(1, dtype=torch.int64, device=device)
+    res = {}
+    for mode, key in enumerate(("pair_cycles", "product_cycles")):
+        runs = []
+        for _ in range(2):
+            _native.launch("chain_latency", _native.counter_name("chain_latency", curve.name),
+                           _native.CURVE_CODES[curve.name], x.data_ptr(), out.data_ptr(),
+                           cycles.data_ptr(), LATENCY_STEPS, mode)
+            runs.append(int(cycles.item()) / LATENCY_STEPS)
+        res[key] = min(runs)
+    return res
+
+
+def horner_bound_ms(W: int, c: int, group: str, curve, clock_hz: float, latency: dict) -> dict:
+    """K18's latency bound: the Horner chain's c·(W − 1) doublings (the top
+    window's c doublings of the identity are not counted) and W adds, each
+    two levels of products deep, three where 3b is a product (BN254 G2; in
+    G2 an Fq2 product is as deep as one base product), times the least
+    latency of one base-field product, at the card's largest SM clock
+    (nvidia-smi clocks.max.sm). That latency is the smaller of the product
+    measured alone on one lane and its carry chain as csrc/chain.cuh orders
+    it, 2N² + 4N − 1 dependent instructions (a fused mad.lo.cc/madc.hi.cc
+    pair counted once), each at the measured pair's latency (`latency`,
+    chain_latency). With every independent product of a level side by
+    side, no schedule of these formulas on this product is shorter."""
+    from snark_tpu_torch.ops import curve as C
+
+    L = C.limbs_of(curve)
+    levels = 2 + (not C.small_b3(group, curve))
+    products = (c * (W - 1) + W) * levels
+    chain = 2 * L * L + 4 * L - 1
+    each = min(chain * latency["pair_cycles"], latency["product_cycles"])
+    return {"ms": products * each / clock_hz * 1e3, "products": products,
+            "chain_instructions": chain, **latency, "product_cycles_used": each,
+            "clock_hz": clock_hz}
+
+
 def mixed_scan(acc, tbl, perm, lane_base, start, length, k_steps: int, group: str, curve):
     """The bucket scan's first k_steps run step by step through K11, one
     launch a step: the function of K1 over the same steps."""
@@ -734,9 +812,11 @@ def phase_kernels_field16(fr, device) -> list[dict]:
 
 
 def phase_kernels_msm(inputs: dict, device) -> tuple[list[dict], dict]:
-    """K5 and K2 without a mask at the Horner combine's shape (one lane),
-    K6-K8 at level 0 of the bench MSM's affine tree, on the bench inputs'
-    curve, against their plain versions. -> (kernel rows, extra timings)."""
+    """K18 at the bench MSM's combine (its W = 20 window totals, c = 13) and
+    on the edge totals, K5 and K2 without a mask one lane at a time and as
+    the Horner chain K18 replaced, K6-K8 at level 0 of the bench MSM's
+    affine tree, on the bench inputs' curve, against their plain versions.
+    -> (kernel rows, extra timings)."""
     import torch
 
     from snark_tpu_torch import _native
@@ -753,6 +833,8 @@ def phase_kernels_msm(inputs: dict, device) -> tuple[list[dict], dict]:
     L = C.limbs_of(curve)
     fq_mul = C.imad_per_mul(L)
     fq_dec = C.imad_per_decode(L)
+    latency = chain_latency(curve, device)
+    extra[_native.counter_name("chain_latency", curve.name)] = latency
     for group, inp in inputs.items():
         K = C.GROUPS[group]
         m2 = 1 if K == 1 else 3  # base muls per field mul
@@ -763,6 +845,40 @@ def phase_kernels_msm(inputs: dict, device) -> tuple[list[dict], dict]:
             return _native.counter_name(kernel, curve.name, group)
 
         hc = host_curve(group, curve)
+        # K18 on the bench MSM's window totals
+        scan_plan = PlaneMsm(inp.c, curve.fr.num_bits, group, signed=True, curve=curve)
+        sums, c, W = scan_plan.window_sums(inp.table, inp.digits), scan_plan.c, scan_plan.W
+        k18 = C.horner_combine(sums, c, group, curve)
+        ref, pms = plain_time(lambda: C.horner_combine_plain(sums, c, group, curve))
+        err = max_abs_err(k18, ref)
+        edge = []
+        for case, s, cc in C.horner_cases(W, c, group, device, curve, seed=4):
+            max_abs_err(C.horner_combine(s, cc, group, curve),
+                        C.horner_combine_plain(s, cc, group, curve))
+            edge.append(case)
+        # the former combine, through K5 and K2 without a mask
+        _native.reset_launches()
+        max_abs_err(C.horner_chain(sums, c, group, curve), k18)
+        chain_launches = {k: v for k, v in _native.LAUNCHES.items() if v}
+        # one whole MSM launches K18 once, and K5 and K2 unmasked never
+        _native.reset_launches()
+        msm_out = scan_plan.msm(inp.table, inp.digits)
+        per_msm = {k: v for k, v in _native.LAUNCHES.items() if v}
+        if C.limbs_to_points(msm_out[None], group, curve)[0] != inp.want:
+            raise AssertionError(f"{name('horner_combine')}: the MSM differs from the pool oracle")
+        if (per_msm.get(name("horner_combine")) != 1 or name("point_double") in per_msm
+                or name("point_add") in per_msm):
+            raise AssertionError(f"{name('horner_combine')}: the MSM's combine launched {per_msm}")
+        row = kernel_row(
+            name("horner_combine"), curve_src, "snark_tpu/ops/msm_plane.py:626",
+            cuda_ms(lambda: C.horner_combine(sums, c, group, curve), reps=20), pms, err,
+            c * W * C.op_imads("dbl", group, curve) + W * C.op_imads("add", group, curve),
+            (W + 1) * pt_bytes)
+        bound = horner_bound_ms(W, c, group, curve, max_sm_clock_hz(), latency)
+        row.update(windows=W, c=c, edge_totals=edge, launches_per_msm=per_msm,
+                   latency_bound_ms=bound["ms"], latency_bound=bound)
+        rows.append(row)
+
         p = C.points_to_limbs([inp.want], group, device, curve)
         q = C.points_to_limbs([hc.double(hc.generator)], group, device, curve)
         for kernel, fn, plain, imads, nbytes, src_line in (
@@ -775,9 +891,13 @@ def phase_kernels_msm(inputs: dict, device) -> tuple[list[dict], dict]:
         ):
             out = fn()
             ref, pms = plain_time(plain)
-            rows.append(kernel_row(
-                name(kernel), curve_src, src_line, cuda_ms(fn, reps=20), pms,
-                max_abs_err(out, ref), imads, nbytes))
+            row = kernel_row(name(kernel), curve_src, src_line, cuda_ms(fn, reps=20), pms,
+                             max_abs_err(out, ref), imads, nbytes)
+            # off the path since K18: the main path's count (0) fills
+            # `launches`; the former chain's is its own key
+            row.update(on_path=False, chain_launches=chain_launches.get(name(kernel), 0))
+            rows.append(row)
+        del sums, k18, ref, msm_out
 
         plan = PlaneMsm(inp.c, curve.fr.num_bits, group, signed=True, affine=True, curve=curve)
         n = inp.n
@@ -1340,7 +1460,8 @@ def main() -> int:
     rows = (rows + bls_rows + msm_rows + bls_msm_rows + vpu_rows + parts_rows + bisect_rows
             + madd_rows)
     for row in rows:
-        if row["launches"] == 0:
+        off_path = row.get("on_path") is False and row["name"].startswith(OFF_PATH)
+        if row["launches"] == 0 and not off_path:
             raise AssertionError(f"{row['name']} was not launched on the main path")
         row["ptxas"] = build["ptxas"].get(kernel_template(row["name"]))
     print(smi, flush=True)

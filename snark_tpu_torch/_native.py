@@ -50,6 +50,10 @@ _SIGNATURES = {
     "snark_field_ew": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _P],
     # curve, group, p, out, lanes, stream
     "snark_point_double": [_I, _I, _P, _P, _I, _P],
+    # curve, group, sums, out, windows, c, stream
+    "snark_horner_combine": [_I, _I, _P, _P, _I, _I, _P],
+    # K18's latency probe: curve, in, out, cycles, n, mode, stream
+    "snark_chain_latency": [_I, _P, _P, _P, _I, _I, _P],
     # curve, group, rows, row_bytes, sgn, den, cls, pairs, stream
     "snark_affine_phase1": [_I, _I, _P, _I, _P, _P, _P, _I, _P],
     # curve, group, mode, a, b, out, n, stream
@@ -91,10 +95,12 @@ NOT_PORTED = -1
 _KERNELS = frozenset({
     "bucket_madd_rows", "masked_add", "point_double", "ntt_stage", "field_ew",
     "affine_phase1", "affine_tree_mul", "affine_phase3", "masked_mixed_add",
-    "mont_mul16", "mont_mul16_limb_major",
+    "mont_mul16", "mont_mul16_limb_major", "horner_combine", "chain_latency",
 })
-# kernels over a scalar field: one counter per curve, not per group
-_SCALAR_KERNELS = ("ntt_stage", "field_ew", "mont_mul16", "mont_mul16_limb_major")
+# kernels over one field of the curve (a scalar field; the base field for
+# K18's latency probe): one counter per curve, not per group
+_SCALAR_KERNELS = ("ntt_stage", "field_ew", "mont_mul16", "mont_mul16_limb_major",
+                   "chain_latency")
 _PORTED = {"bn254": _KERNELS | {"bucket_madd_rows_part"}, "bls12_381": _KERNELS}
 MADD_PARTS = ("nosub", "halfmul", "nodecode")  # K1's parts, by their code 1, 2, 3
 _PART_KERNELS = tuple(f"bucket_madd_rows_part_{part}" for part in MADD_PARTS)

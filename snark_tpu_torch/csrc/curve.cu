@@ -1,7 +1,7 @@
 // Curve kernels of the bucket MSM, for G1 (over Fq) and G2 (over Fq2): the
 // C entry points, and the BN254 instances. The kernels themselves are
 // templates in curve_kernels.cuh; curve_bls.cu compiles the BLS12-381
-// instances of K1, K2, K5 and K11 in a process of its own, and each entry point
+// instances of K1, K2, K5, K11 and K18 in a process of its own, and each entry point
 // takes a curve code (kBn254, kBls12_381) and dispatches on it.
 //
 // K1 bucket_madd_rows replaces snark_tpu/ops/pallas_curve.py
@@ -15,6 +15,12 @@
 //   add of the device Horner combine.
 // K5 point_double replaces snark_tpu/ops/pallas_curve.py make_point_double
 //   (body _double_body, RCB15 Alg 9): the doublings of the Horner combine.
+// K18 horner_combine replaces the device Horner combine of
+//   snark_tpu/ops/msm_plane.py PlaneMsm._combine_impl: its fori_loop over
+//   the windows of c make_point_double calls and one make_point_add
+//   (ops/pallas_curve.py:709, :702) becomes one launch of one warp. K5 and
+//   K2 without a mask stay as the per-operation counterparts of those two
+//   kernels; no path calls them any more.
 // K11 masked_mixed_add replaces snark_tpu/ops/pallas_curve.py
 //   make_masked_mixed_add (_make_pointwise with mixed=True, body
 //   _madd_mixed_body, RCB15 Alg 8): mask ? P + (X2, Y2) : P with Q affine,
@@ -60,9 +66,28 @@
 // cap (the build log gives the bytes), and K2 in G2 reads its operands'
 // coordinates from memory at each use (curve.cuh MemPoint) instead of
 // holding them. The 12-limb products and those of Fq2 are calls (field.cuh
-// mont_mul_call, which says why); the BN254 G1 kernels inline theirs. The
-// Horner combine runs K5 and K2 on one lane, c + 1 launches per window:
-// there launch latency, not arithmetic, sets the time.
+// mont_mul_call, which says why); the BN254 G1 kernels inline theirs.
+//
+// K18 is bound by latency, not by a rate: Horner's c (W - 1) doublings and
+// W adds form one dependent chain. With each formula's independent products
+// side by side, a doubling or an add costs two products in depth (RCB15
+// Alg 9: Y^2, Y Z, Z^2, X Y, then t2 z8, t1 z8, t0n (t0 + t2), t0n x y; Alg
+// 7: six, then six), three where 3b is a product (BN254 G2), an Fq2
+// product as deep as one base product (its three side by side); the bound
+// is that depth in products times the least latency of one base product,
+// measured on the card by chain_latency_kernel (the product alone on one
+// lane, or its carry chain at a fused multiply-add pair's latency, the
+// smaller; chip_smoke.py horner_bound_ms).
+// The former combine ran each operation as a one-lane K5 or K2 launch, c + 1
+// launches a window (280 at c = 13): launch latency set its time, and within
+// a launch one thread ran the 8 to 13 products one after another. K18 keeps
+// the running point and all W totals in shared memory (the totals read from
+// device memory once, the result stored once, canonical), and runs each
+// level's products on separate lanes of one warp with the same code, one
+// product a lane (in G2 one base product a lane: an Fq2 product's three
+// Karatsuba products side by side, then a level that combines them), the
+// additions between them too, each level closed by __syncwarp. A lane
+// holds one operation's operands only.
 
 #include "curve_kernels.cuh"
 
@@ -110,5 +135,26 @@ extern "C" int snark_point_double(int curve, int group, const void* p, void* out
   cudaStream_t s = (cudaStream_t)stream;
   if (curve == kBn254) return launch_point_double<FqParams>(group, p, out, lanes, s);
   if (curve == kBls12_381) return bls_point_double(group, p, out, lanes, s);
+  return kNotPorted;
+}
+
+extern "C" int snark_horner_combine(int curve, int group, const void* sums, void* out, int windows,
+                                    int c, void* stream) {
+  if (windows <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (curve == kBn254) return launch_horner_combine<FqParams>(group, sums, out, windows, c, s);
+  if (curve == kBls12_381) return bls_horner_combine(group, sums, out, windows, c, s);
+  return kNotPorted;
+}
+
+// K18's latency probe (curve_kernels.cuh chain_latency_kernel), over the
+// curve's base field: no TPU kernel's counterpart, a measurement for the
+// bound of K18's row.
+extern "C" int snark_chain_latency(int curve, const void* in, void* out, void* cycles, int n,
+                                   int mode, void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (curve == kBn254) return launch_chain_latency<FqParams>(in, out, cycles, n, mode, s);
+  if (curve == kBls12_381) return bls_chain_latency(in, out, cycles, n, mode, s);
   return kNotPorted;
 }

@@ -1,5 +1,6 @@
 // The BLS12-381 instances of K1 bucket_madd_rows, K2 masked_add, K5
-// point_double and K11 masked_mixed_add (G1 over Fq, G2 over Fq2, 12-limb Fq), compiled apart from
+// point_double, K11 masked_mixed_add and K18 horner_combine (G1 over Fq, G2
+// over Fq2, 12-limb Fq), compiled apart from
 // curve.cu so that the two run as separate nvcc processes; curve.cu's entry
 // points call these launchers for the kBls12_381 curve code. What the
 // kernels replace and what bounds them is in curve.cu.
@@ -28,6 +29,15 @@ int bls_point_double(int group, const void* p, void* out, int lanes, cudaStream_
 int bls_masked_mixed_add(int group, const void* p, const void* x2, const void* y2,
                          const void* mask, void* out, int lanes, cudaStream_t s) {
   return launch_masked_mixed_add<BlsFqParams>(group, p, x2, y2, mask, out, lanes, s);
+}
+
+int bls_horner_combine(int group, const void* sums, void* out, int windows, int c,
+                       cudaStream_t s) {
+  return launch_horner_combine<BlsFqParams>(group, sums, out, windows, c, s);
+}
+
+int bls_chain_latency(const void* in, void* out, void* cycles, int n, int mode, cudaStream_t s) {
+  return launch_chain_latency<BlsFqParams>(in, out, cycles, n, mode, s);
 }
 
 }  // namespace snark

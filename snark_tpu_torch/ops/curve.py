@@ -1,8 +1,10 @@
 """Curve kernels K1 (`bucket_madd_rows`), K2 (`masked_add`, and
-`point_add`: K2 with no mask), K5 (`point_double`) and K11
-(`masked_mixed_add`), their plain PyTorch versions, and the codecs between host points, the reference's u8 row
-tables and the port's projective limb tensors, for BN254 and BLS12-381
-(every function takes the curve, BN254 by default).
+`point_add`: K2 with no mask), K5 (`point_double`), K11
+(`masked_mixed_add`) and K18 (`horner_combine`, the MSM's Horner combine
+in one launch), their plain PyTorch versions, and the codecs between host
+points, the reference's u8 row tables and the port's projective limb
+tensors, for BN254 and BLS12-381 (every function takes the curve, BN254 by
+default).
 
 A batch of points is an int32 tensor (lanes, 3, K, L): projective X, Y, Z,
 each K base-field elements (K = 1 for G1 over Fq, 2 for G2 over Fq2) of L
@@ -471,6 +473,20 @@ def point_double_plain(p, group: str, curve: CurveParams = BN254) -> torch.Tenso
     return from_words(_PlainCurve(group, p.device, curve).pdbl(_words(p)))
 
 
+def horner_combine_plain(sums, c: int, group: str, curve: CurveParams = BN254) -> torch.Tensor:
+    """Plain version of K18: from the identity, top window first, c
+    doublings (Alg 9) and one add (Alg 7) of sums[w] a window; the chain
+    of point_double_plain and point_add_plain. -> (3, K, L)."""
+    pc = _PlainCurve(group, sums.device, curve)
+    s = _words(sums)
+    acc = _words(identity(1, group, sums.device, curve))
+    for w in range(s.shape[0] - 1, -1, -1):
+        for _ in range(c):
+            acc = pc.pdbl(acc)
+        acc = pc.padd(acc, s[w : w + 1])
+    return from_words(acc[0])
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -614,6 +630,72 @@ def point_add(
         p.data_ptr(), q.data_ptr(), None, out.data_ptr(), lanes,
     )
     return out
+
+
+def horner_combine(
+    sums: torch.Tensor, c: int, group: str = "g1", curve: CurveParams = BN254
+) -> torch.Tensor:
+    """K18: Horner over the window totals sums (W, 3, K, L), top window
+    first, from the identity: acc = 2^c acc + sums[w] -> (3, K, L)
+    projective, canonical. One launch of one warp for the whole combine."""
+    _native.require_ported("horner_combine", curve.name)
+    windows = _check_points(sums, group, "sums", curve)
+    if windows < 1 or c < 0:
+        raise ValueError(f"horner_combine: want W >= 1 and c >= 0, got W = {windows}, c = {c}")
+    if sums.device.type == "cpu":
+        return horner_combine_plain(sums, c, group, curve)
+    _native.require_cuda(sums)
+    out = torch.empty((3, GROUPS[group], limbs_of(curve)), dtype=torch.int32, device=sums.device)
+    _launch("horner_combine", "horner_combine", curve, group, sums.data_ptr(), out.data_ptr(),
+            windows, int(c))
+    return out
+
+
+def horner_chain(sums, c: int, group: str, curve: CurveParams = BN254, double=None, add=None):
+    """The combine one group operation at a time, as it ran before K18:
+    from the identity, top window first, c calls of double and one of add
+    a window -> (3, K, L). double and add default to K5 and K2 without a
+    mask; point_double_plain and point_add_plain make it the chain of
+    their plain versions."""
+    double, add = double or point_double, add or point_add
+    acc = identity(1, group, sums.device, curve)
+    for w in range(sums.shape[0] - 1, -1, -1):
+        for _ in range(c):
+            acc = double(acc, group, curve)
+        acc = add(acc, sums[w : w + 1], group, curve)
+    return acc[0]
+
+
+def horner_cases(W: int, c: int, group: str, device, curve: CurveParams = BN254, seed: int = 0):
+    """Window totals at the edges of the Horner combine -> [(name, sums,
+    c)]: every total the identity; random multiples of the generator with
+    two equal totals, with T and −T in adjacent windows, with a top total T
+    and the next 2^c·T (the add meets its own point: a doubling) or
+    −2^c·T (it meets its inverse: the identity); one window; c = 1; and
+    limb patterns at the field core's edges (`edge_points`, not curve
+    points: the complete formulas take any field elements)."""
+    import random
+
+    from .curve_host import host_g1, host_g2
+
+    hc = host_g1(curve) if group == "g1" else host_g2(curve)
+    rng = random.Random(seed)
+    r = curve.fr.modulus
+    pts = [hc.scalar_mul(hc.generator, rng.randrange(1, r)) for _ in range(W)]
+    top = pts[-1]
+    top_c = hc.scalar_mul(top, 1 << c)
+    k = W // 2
+    cases = [
+        ("identity", [None] * W, c),
+        ("equal", pts[:k] + [pts[k + 1]] + pts[k + 1 :], c),
+        ("negated", pts[:k] + [hc.neg(pts[k + 1])] + pts[k + 1 :], c),
+        ("doubling", pts[:-2] + [top_c, top], c),
+        ("inverse", pts[:-2] + [hc.neg(top_c), top], c),
+        ("one_window", pts[:1], c),
+        ("c1", pts, 1),
+    ]
+    out = [(name, points_to_limbs(p, group, device, curve), cc) for name, p, cc in cases]
+    return out + [("edge_limbs", edge_points(W, group, device, curve, seed), c)]
 
 
 def point_double(p: torch.Tensor, group: str = "g1", curve: CurveParams = BN254) -> torch.Tensor:

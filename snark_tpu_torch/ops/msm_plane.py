@@ -6,8 +6,8 @@ accumulation (the scan with its rank-split spill, or the batch-affine tree
 of `ops/msm_affine.py`), the replica and suffix folds, and the Horner
 combine over the window totals, on the device (`msm`) or on the host
 (`msm_host`). The group arithmetic is K1 (`bucket_madd_rows`, the scan),
-K2 (`masked_add`, the folds; `point_add`, the combine), K5
-(`point_double`, the combine) and K6-K8 (the affine tree).
+K2 (`masked_add`, the folds), K6-K8 (the affine tree) and K18
+(`horner_combine`, the whole device combine in one launch).
 
 Signed digits (the prover's): bucket b holds |digit| = b + 1 (cb = c − 1
 bucket bits), zero digits are dropped and a digit's sign rides bit 31 of
@@ -33,15 +33,7 @@ import numpy as np
 import torch
 
 from ..fields.params import BN254, CurveParams
-from .curve import (
-    GROUPS,
-    identity,
-    limbs_of,
-    limbs_to_points,
-    masked_add,
-    point_add,
-    point_double,
-)
+from .curve import GROUPS, horner_combine, identity, limbs_of, limbs_to_points, masked_add
 from .madd_parts import bucket_madd_rows_part
 
 _SIGN = 1 << 31
@@ -276,14 +268,9 @@ class PlaneMsm:
         return self._fold(self._accumulate(table, digits.t().contiguous()))
 
     def combine(self, sums: torch.Tensor) -> torch.Tensor:
-        """Horner over the window totals on the device: c doublings (K5)
-        and one add (K2) per window, on one lane -> (3, K, L) projective."""
-        acc = identity(1, self.group, sums.device, self.curve)
-        for w in range(self.W - 1, -1, -1):
-            for _ in range(self.c):
-                acc = point_double(acc, self.group, self.curve)
-            acc = point_add(acc, sums[w : w + 1], self.group, self.curve)
-        return acc[0]
+        """Horner over the window totals on the device: c doublings and one
+        add per window, all in one K18 launch -> (3, K, L) projective."""
+        return horner_combine(sums, self.c, self.group, self.curve)
 
     def combine_host(self, sums: torch.Tensor, host_curve):
         """Horner over the window totals on the host -> affine point."""

@@ -13,8 +13,9 @@ all of them). Each run builds its tree's kernels first (both trees' builds
 run together before the first turn), calls that tree's own phase functions
 and prints their JSON lines; this process tags every line with its tree
 and turn and prints at the end one JSON line `{"pair": ...}`: for each
-kernel row, ms in the four turns; for each msm_bench record, adds/s; the
-`msm *` stages of the proves; the K1 scans of bench_madd_parts. Every
+kernel row, ms in the four turns; for each msm_bench record, adds/s and
+its `stage_ms.combine`; the `msm *` stages of the proves; the K1 scans of
+bench_madd_parts. Every
 number is measured on the card by the phase that prints it. Exits
 non-zero if a run fails. Needs one card.
 """
@@ -109,7 +110,8 @@ def build_both(trees: list[str]) -> None:
 
 def summary(runs: list[list[dict]]) -> dict:
     """The numbers to compare, each a list over the four turns."""
-    out: dict = {"kernel_ms": {}, "msm_adds_per_s": {}, "prove_msm_ms": {}, "k1_scan_ms": {}}
+    out: dict = {"kernel_ms": {}, "msm_adds_per_s": {}, "msm_combine_ms": {}, "prove_msm_ms": {},
+                 "k1_scan_ms": {}}
 
     def put(table, name, turn, v):
         table.setdefault(name, [None] * len(runs))[turn] = v
@@ -133,6 +135,7 @@ def summary(runs: list[list[dict]]) -> dict:
                 d = rec["msm_bench"]["detail"]
                 name = f"{d['curve']} c{d['window_bits']} signed={d['signed_digits']} affine={d['affine']}"
                 put(out["msm_adds_per_s"], name, turn, rec["msm_bench"]["value"])
+                put(out["msm_combine_ms"], name, turn, d["stage_ms"]["combine"])
     return out
 
 

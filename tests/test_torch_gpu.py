@@ -138,6 +138,31 @@ def test_combine_kernels_match_plain(cuda, group):
     assert C.limbs_to_points(s, group) == [hc.add(a, b) for a, b in zip(P, Q)]
 
 
+def test_horner_combine_matches_plain(cuda):
+    """K18 against its plain version, limb for limb, on both curves and
+    groups at the bench's W = 20, c = 13: random totals and the edge totals
+    (identity, equal, negated, doubling, inverse, one window, c = 1, edge
+    limbs). `PlaneMsm.combine` launches K18 once and nothing else."""
+    for curve in (BN254, BLS12_381):
+        for group in ("g1", "g2"):
+            plan = PlaneMsm(13, curve.fr.num_bits, group, signed=True, curve=curve)
+            assert plan.W == 20
+            hc = B.host_curve(group, curve)
+            rng = random.Random(9)
+            pts = [hc.scalar_mul(hc.generator, rng.randrange(1, curve.fr.modulus))
+                   for _ in range(plan.W)]
+            cases = [("random", C.points_to_limbs(pts, group, cuda, curve), plan.c)]
+            cases += C.horner_cases(plan.W, plan.c, group, cuda, curve, seed=4)
+            for name, sums, c in cases:
+                got = C.horner_combine(sums, c, group, curve)
+                want = C.horner_combine_plain(sums, c, group, curve)
+                assert torch.equal(got, want), (curve.name, group, name)
+            _native.reset_launches()
+            plan.combine(cases[0][1])
+            launched = {k: v for k, v in _native.LAUNCHES.items() if v}
+            assert launched == {_native.counter_name("horner_combine", curve.name, group): 1}
+
+
 def affine_level0(group, n, c, seed, cuda, curve=BN254):
     """Level-0 blocks of a signed affine MSM over a pool with inverse
     pairs and identity rows: (rows, sign bytes)."""
