@@ -28,7 +28,15 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    `horner_bound_ms`, on the product latency K18's latency probe measures
    on the card, `chain_latency`); each kernel's
    time (CUDA events, warmed up), its plain version's time and its bound;
-   the kernel line adds each kernel's ptxas registers and spills. The same
+   the kernel line adds each kernel's ptxas registers and spills. K3 is the
+   pass kernel (`ntt_pass`, k stages a launch): every pass of the plan's
+   split, DIT and DIF, with and without the Hadamard prologue and the scale
+   epilogue, equal to the plain passes, the fused h (`NttPlan.h_std`) equal
+   to the unfused plain pipeline (`h_plain`); its row's ms and bound are a
+   pass's (the mean over a transform), bound by operations with the bytes
+   bound beside it, and it adds each pass's time, a transform's and the h
+   pipeline's (CUDA events over 10 runs) and one stage's (`ntt_stage`), and
+   the ptxas of the DIF instance (`ptxas_dif`). The same
    phase holds K9 and K10 (the standalone 16-bit-limb products) at 2^20
    elements of BN254 Fr, the shape of bench_field below, and K11 (the
    masked mixed add) in G1 and G2 at the lane count of the 2^18 prove's
@@ -49,7 +57,8 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    and tables that tile a pool of 64 distinct points. Every MSM sum is
    checked exactly against the host pool oracle, h against
    h(x)·Z_H(x) = a(x)·b(x) − c(x) at a random x, and the proof against
-   `assemble_proof` on the oracle sums. Launch counts of this prove go into
+   `assemble_proof` on the oracle sums; the h stage must have launched K3
+   seven times a transform's passes. Launch counts of this prove go into
    the kernel line for K1-K4.
 5. prove_full_affine: the same prove with `affine_msm=True`; its proof must
    equal prove_full's. The synthetic key has no setup behind it, so its
@@ -367,9 +376,10 @@ class SyntheticKey:
 
 def short_name(mangled: str) -> str:
     """`_ZN5snark23bucket_madd_rows_kernelINS_3Fp2INS_11BlsFqParamsEEELi0EEEv...`
-    -> `bucket_madd_rows_kernel<Fp2<BlsFqParams>, 0>`; an int template
-    argument is kept: `_ZN5snark18sweep_chain_kernelILi34EEE...` ->
-    `sweep_chain_kernel<34>`."""
+    -> `bucket_madd_rows_kernel<Fp2<BlsFqParams>, 0>`; int and bool template
+    arguments are kept: `_ZN5snark18sweep_chain_kernelILi34EEE...` ->
+    `sweep_chain_kernel<34>`, `_ZN5snark15ntt_pass_kernelINS_8FrParamsELi3ELb1EEEv...`
+    -> `ntt_pass_kernel<FrParams, 3, true>`."""
     m = re.match(r"_ZN5snark(\d+)", mangled)
     if not m:
         return mangled
@@ -385,8 +395,12 @@ def short_name(mangled: str) -> str:
         inner = f"Fp2<{inner}>"
     elif "2Fp" in mangled:
         inner = f"Fp<{inner}>"
-    part = re.search(r"Li(\d+)EEEv", mangled)  # K1's part, after its field
-    return f"{name}<{inner}{f', {part.group(1)}' if part else ''}>"
+    # int and bool arguments after the field (K1's part; K3's radix and
+    # direction), up to the end of the template's arguments
+    rest = mangled[params.end() : mangled.find("Ev", params.end()) + 1]
+    args = [v if t == "i" else ("false", "true")[int(v)]
+            for t, v in re.findall(r"L([ib])(\d+)E", rest)]
+    return f"{name}<{', '.join([inner] + args)}>"
 
 
 def kernel_template(name: str) -> str:
@@ -408,7 +422,9 @@ def kernel_template(name: str) -> str:
         return f"{base}_kernel<{V.ROWS}>"
     if base in VPU_KERNELS:
         return f"{base}_kernel"
-    if base in ("ntt_stage", "field_ew", "mont_mul16", "mont_mul16_limb_major"):
+    if base == "ntt_pass":  # the DIT instance of 8 elements a thread (DIF: `ptxas_dif`)
+        return f"ntt_pass_kernel<{bls}FrParams, 3, false>"
+    if base in ("field_ew", "mont_mul16", "mont_mul16_limb_major"):
         return f"{base}_kernel<{bls}FrParams>"
     base, group = base.rsplit("_", 1)
     base = "masked_add" if base == "point_add" else base
@@ -748,33 +764,82 @@ def phase_kernels(key: SyntheticKey, z_std, device) -> list[dict]:
             r["edge_operands"] = edge
         torch.cuda.empty_cache()
 
-    # K3, K4 at the domain size
+    # K3 (the pass kernel; one stage of it, ntt_stage), K4 at the domain size
     n = pk.domain_size
     rng = random.Random(11)
-    x = fr.tensor([rng.randrange(fr.p) for _ in range(n)], device)
-    y = fr.tensor([rng.randrange(fr.p) for _ in range(n)], device)
+    x, y, w = (fr.tensor([rng.randrange(fr.p) for _ in range(n)], device) for _ in range(3))
     plan = N.NttPlan(n, device, fr)
-    s = 9  # a middle stage: half = 512
-    for dif in (False, True):
-        o3 = N.ntt_stage(x, plan.inv_tw, s, n >> (s + 1), dif, fr)
-        ref3 = N.ntt_stage_plain(x, plan.inv_tw, s, n >> (s + 1), dif, fr)
-        max_abs_err(o3, ref3)
-    ms3 = cuda_ms(lambda: N.ntt_stage(x, plan.inv_tw, s, n >> (s + 1), False, fr))
-    _, pms3 = plain_time(lambda: N.ntt_stage_plain(x, plan.inv_tw, s, n >> (s + 1), False, fr))
-    rows.append(kernel_row(_native.counter_name("ntt_stage", curve.name), ntt_src,
-          "snark_tpu/ops/ntt_plane.py:158", ms3, pms3, 0,
-          (n // 2) * fr_mul, n * 64 + (1 << s) * 32))
+    rows.append(ntt_pass_row(plan, x, y, w, curve.name, ntt_src, fr_mul))
 
     for mode in ("mul", "add", "hadamard"):
         o4 = N.field_ew(mode, x, y, plan.coset_scale_rev, plan.z_coset_inv, fr)
         max_abs_err(o4, N.field_ew_plain(mode, x, y, plan.coset_scale_rev, plan.z_coset_inv, fr))
-    ms4 = cuda_ms(lambda: N.field_ew("mul", x, y, field=fr))
+    ms4 = cuda_ms(lambda: N.field_ew("mul", x, y, field=fr), reps=10)
     _, pms4 = plain_time(lambda: N.field_ew_plain("mul", x, y, field=fr))
     rows.append(kernel_row(_native.counter_name("field_ew", curve.name), ntt_src,
           "snark_tpu/ops/ntt_plane.py:197", ms4, pms4, 0, n * fr_mul, n * 96))
-    del x, y, plan
+    del x, y, w, plan
     rows += phase_kernels_field16(fr, device)
     return rows
+
+
+def ntt_pass_row(plan, x, y, w, curve_name: str, source: str, fr_mul: int) -> dict:
+    """K3 at the plan's domain: every pass of its split, DIT and DIF, with
+    and without the Hadamard prologue and the scale epilogue, equal to the
+    plain passes, and the fused h (`h_std`) equal to the unfused plain
+    pipeline; one stage (`ntt_stage`) equal to its plain version. The row's
+    ms and bounds are a pass's, the mean over a transform's passes; beside
+    them each pass, a whole transform and the h pipeline (CUDA events over
+    10 runs), one stage, and the bytes bound."""
+    from snark_tpu_torch import _native
+    from snark_tpu_torch.ops import ntt as N
+
+    fr, n, log_n = plan.field, plan.n, plan.log_n
+    had = (y, w, plan.z_coset_inv)
+    for s0, k in plan.passes:
+        for dif, tw in ((False, plan.fwd_tw), (True, plan.inv_tw)):
+            for h, sc in ((None, None), (had, None), (None, plan.coset_scale_rev),
+                          (had, plan.coset_unscale_std)):
+                max_abs_err(N.ntt_pass(x, tw, s0, k, dif, hadamard=h, scale=sc, field=fr),
+                            N.ntt_pass_plain(x, tw, s0, k, dif, hadamard=h, scale=sc, field=fr))
+    max_abs_err(plan.h_std(x, y, w), plan.h_plain(x, y, w))
+    s = 9  # one stage, a middle one: half = 512
+    for dif in (False, True):
+        max_abs_err(N.ntt_stage(x, plan.inv_tw, s, n >> (s + 1), dif, fr),
+                    N.ntt_stage_plain(x, plan.inv_tw, s, n >> (s + 1), dif, fr))
+
+    def bounds(imads, nbytes):
+        b, by = bound_ms(imads, nbytes)
+        return {"bound_ms": b, "bound_by": by, "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3}
+
+    # bytes: the array in and out, and the twiddles the pass's top stage
+    # indexes (2^s of the n/2 powers; the lower stages read a subset)
+    passes = []
+    for s0, k in plan.passes:
+        ms = cuda_ms(lambda s0=s0, k=k: N.ntt_pass(x, plan.fwd_tw, s0, k, False, field=fr), reps=10)
+        passes.append({"s0": s0, "k": k, "ms": ms, **bounds(
+            k * (n // 2) * fr_mul, n * 64 + (1 << (s0 + k - 1)) * 32)})
+    transform_ms = cuda_ms(lambda: plan.dit(x, plan.fwd_tw), reps=10)
+    t_imads = log_n * (n // 2) * fr_mul
+    t_bytes = sum(n * 64 + (1 << (s0 + k - 1)) * 32 for s0, k in plan.passes)
+    h_ms = cuda_ms(lambda: plan.h_std(x, y, w), reps=10)
+    # 7 transforms; 6 products an element (3 scales, the Hadamard's 2, the
+    # unscale); the Hadamard's two more inputs and the 4 scale tables read
+    h_bounds = bounds(7 * t_imads + 6 * n * fr_mul, 7 * t_bytes + (2 + 4) * n * 32)
+    stage_ms = cuda_ms(lambda: N.ntt_stage(x, plan.inv_tw, s, n >> (s + 1), False, fr), reps=10)
+    _, plain_ms = plain_time(lambda: [N.ntt_pass_plain(x, plan.fwd_tw, s0, k, False, field=fr)
+                                      for s0, k in plan.passes])
+    P = len(plan.passes)
+    row = kernel_row(_native.counter_name("ntt_pass", curve_name), source,
+                     "snark_tpu/ops/ntt_plane.py:158", transform_ms / P, plain_ms / P, 0,
+                     t_imads / P, t_bytes / P)
+    row.update(
+        bytes_bound_ms=t_bytes / P / PEAK_BYTES * 1e3, passes=passes,
+        transform_ms=transform_ms, transform_bound=bounds(t_imads, t_bytes),
+        h_ms=h_ms, h_bound=h_bounds,
+        ntt_stage_ms=stage_ms, ntt_stage_bound=bounds((n // 2) * fr_mul, n * 64 + (1 << s) * 32),
+    )
+    return row
 
 
 def phase_kernels_field16(fr, device) -> list[dict]:
@@ -1006,6 +1071,9 @@ def phase_prove_full(key: SyntheticKey, z: list[int], device, affine_msm: bool =
     prove_s = time.time() - t
     launches = dict(_native.LAUNCHES)
     run = g16.last_run
+    k3 = launches[_native.counter_name("ntt_pass", key.curve.name)]
+    if k3 != 7 * len(g16.ntt_plan(pk.domain_size).passes):
+        raise AssertionError(f"the h pipeline launched K3 {k3} times")
     h = fr.decode(run.h_std, mont=False)
     ni = pk.num_instance
     n = pk.domain_size
@@ -1464,6 +1532,9 @@ def main() -> int:
         if row["launches"] == 0 and not off_path:
             raise AssertionError(f"{row['name']} was not launched on the main path")
         row["ptxas"] = build["ptxas"].get(kernel_template(row["name"]))
+        if row["name"].startswith("ntt_pass"):
+            row["ptxas_dif"] = build["ptxas"].get(
+                kernel_template(row["name"]).replace("false>", "true>"))
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -44,8 +44,9 @@ _SIGNATURES = {
     "snark_bucket_madd_rows_part": [_I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     # curve, group, p, q, mask, out, lanes, stream
     "snark_masked_add": [_I, _I, _P, _P, _P, _P, _I, _P],
-    # curve, x, y, tw, n, log_half, tw_stride, dif, stream
-    "snark_ntt_stage": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
+    # curve, x, y, tw, n, s0, k, log_g, tw_log, dif, had_b, had_c, had_d,
+    # scale, stream
+    "snark_ntt_pass": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # curve, mode, out, a, b, c, d, n, b_bcast, stream
     "snark_field_ew": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _P],
     # curve, group, p, out, lanes, stream
@@ -93,13 +94,13 @@ _SIGNATURES = {
 CURVE_CODES = {"bn254": 0, "bls12_381": 1}
 NOT_PORTED = -1
 _KERNELS = frozenset({
-    "bucket_madd_rows", "masked_add", "point_double", "ntt_stage", "field_ew",
+    "bucket_madd_rows", "masked_add", "point_double", "ntt_pass", "field_ew",
     "affine_phase1", "affine_tree_mul", "affine_phase3", "masked_mixed_add",
     "mont_mul16", "mont_mul16_limb_major", "horner_combine", "chain_latency",
 })
 # kernels over one field of the curve (a scalar field; the base field for
 # K18's latency probe): one counter per curve, not per group
-_SCALAR_KERNELS = ("ntt_stage", "field_ew", "mont_mul16", "mont_mul16_limb_major",
+_SCALAR_KERNELS = ("ntt_pass", "field_ew", "mont_mul16", "mont_mul16_limb_major",
                    "chain_latency")
 _PORTED = {"bn254": _KERNELS | {"bucket_madd_rows_part"}, "bls12_381": _KERNELS}
 MADD_PARTS = ("nosub", "halfmul", "nodecode")  # K1's parts, by their code 1, 2, 3
@@ -113,9 +114,9 @@ _FREE_KERNELS = (
 
 def counter_name(kernel: str, curve: str, group: str | None = None) -> str:
     """The launch counter of one kernel instance: `bucket_madd_rows_g1`,
-    `ntt_stage` for BN254 (the names of the first slices), and the curve
+    `ntt_pass` for BN254 (the names of the first slices), and the curve
     between kernel and group for the others (`bucket_madd_rows_bls12_381_g1`,
-    `ntt_stage_bls12_381`)."""
+    `ntt_pass_bls12_381`)."""
     parts = [kernel] + ([] if curve == "bn254" else [curve]) + ([group] if group else [])
     return "_".join(parts)
 
@@ -267,6 +268,13 @@ def launch(kernel: str, counter: str, *args) -> None:
         raise NotImplementedError(f"{kernel}: the library has no instance for curve code {args[0]}")
     if code != 0:
         raise RuntimeError(f"{kernel}: CUDA error {code} at launch")
+
+
+def require_aligned(*tensors: torch.Tensor) -> None:
+    """Kernels that move 16 bytes at a time take 16-byte aligned data."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"data at {t.data_ptr():#x} is not 16-byte aligned")
 
 
 def require_cuda(*tensors: torch.Tensor) -> None:

@@ -10,8 +10,8 @@ path computes them:
 
 1. witness upload, Montgomery conversion (K4), three padded-CSR matvecs;
 2. evaluation padding (instance rows on the A side, zeros);
-3. h = (A·B − C)/Z_H on the coset (K3 stages, K4), bit-reversed order,
-   then canonical standard form (K4);
+3. h = (A·B − C)/Z_H on the coset (K3 passes of several stages, with
+   K4's products inside them), bit-reversed order, canonical standard form;
 4. signed c-bit window digits of z and h;
 5. five bucket MSMs (K1 scan, K2 folds): A, B1, L, H in G1 and B in G2,
    each finished by a host Horner combine; with `affine_msm=True` the
@@ -41,7 +41,7 @@ from ..ops.curve import row_bytes
 from ..ops.curve_host import host_g1, host_g2
 from ..ops.msm import pick_window_plane_signed, signed_digits
 from ..ops.msm_plane import PlaneMsm
-from ..ops.ntt import NttPlan, from_mont, to_mont
+from ..ops.ntt import NttPlan, to_mont
 from .pairing import get_pairing
 from .qap import PaddedCsr, matvec
 
@@ -242,7 +242,7 @@ class Groth16:
 
     def h_coefficients(self, pk: ProvingKey, a, b, c) -> torch.Tensor:
         """Stage 3: -> h, canonical standard form, bit-reversed order."""
-        return from_mont(self.ntt_plan(pk.domain_size).h_from_evals(a, b, c), self.fr)
+        return self.ntt_plan(pk.domain_size).h_std(a, b, c)
 
     def msm_sums(self, pk: ProvingKey, z_std: torch.Tensor, h_std: torch.Tensor, tick):
         """Stages 4-5: the five MSMs -> (affine host points, whether each

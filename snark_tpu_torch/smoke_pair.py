@@ -13,9 +13,10 @@ all of them). Each run builds its tree's kernels first (both trees' builds
 run together before the first turn), calls that tree's own phase functions
 and prints their JSON lines; this process tags every line with its tree
 and turn and prints at the end one JSON line `{"pair": ...}`: for each
-kernel row, ms in the four turns; for each msm_bench record, adds/s and
-its `stage_ms.combine`; the `msm *` stages of the proves; the K1 scans of
-bench_madd_parts. Every
+kernel row, ms in the four turns (K3's also a transform, the h pipeline
+and one stage); for each msm_bench record, adds/s and its
+`stage_ms.combine`; the `h` and `msm *` stages of the proves; the K1
+scans of bench_madd_parts. Every
 number is measured on the card by the phase that prints it. Exits
 non-zero if a run fails. Needs one card.
 """
@@ -110,8 +111,8 @@ def build_both(trees: list[str]) -> None:
 
 def summary(runs: list[list[dict]]) -> dict:
     """The numbers to compare, each a list over the four turns."""
-    out: dict = {"kernel_ms": {}, "msm_adds_per_s": {}, "msm_combine_ms": {}, "prove_msm_ms": {},
-                 "k1_scan_ms": {}}
+    out: dict = {"kernel_ms": {}, "msm_adds_per_s": {}, "msm_combine_ms": {},
+                 "prove_stage_ms": {}, "k1_scan_ms": {}}
 
     def put(table, name, turn, v):
         table.setdefault(name, [None] * len(runs))[turn] = v
@@ -121,10 +122,13 @@ def summary(runs: list[list[dict]]) -> dict:
             phase = rec.get("phase")
             for row in rec.get("kernels", []):
                 put(out["kernel_ms"], row["name"], turn, row["ms"])
+                for extra in ("transform_ms", "h_ms", "ntt_stage_ms"):  # K3's pass kernel
+                    if extra in row:
+                        put(out["kernel_ms"], f"{row['name']} {extra}", turn, row[extra])
             if phase and phase.startswith("prove_full"):
                 for stage, ms in rec["stage_ms"].items():
-                    if stage.startswith("msm"):
-                        put(out["prove_msm_ms"], f"{phase} {stage}", turn, ms)
+                    if stage.startswith("msm") or stage == "h":
+                        put(out["prove_stage_ms"], f"{phase} {stage}", turn, ms)
             if phase == "bench_madd_parts":
                 for part, ms in rec["scan_ms"].items():
                     put(out["k1_scan_ms"], part, turn, ms)

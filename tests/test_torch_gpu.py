@@ -18,7 +18,7 @@ import torch
 
 from snark_tpu_torch import _native, bench_bisect_mul, bench_field, bench_reduce_parts, bench_vpu_peak
 from snark_tpu_torch import bench as B
-from snark_tpu_torch.fields.limbs import BLS_FR, FR, fields_of
+from snark_tpu_torch.fields.limbs import BLS_FR, FR, fields_of, u32_tensor
 from snark_tpu_torch.fields.params import BLS12_381, BN254
 from snark_tpu_torch.groth16 import Groth16, ProvingKey
 from snark_tpu_torch.models import MulChainCircuit
@@ -75,6 +75,41 @@ def test_ntt_matches_plain(cuda):
                 N.ntt_stage(x, gpu.fwd_tw, s, n >> (s + 1), dif),
                 N.ntt_stage_plain(x, gpu.fwd_tw, s, n >> (s + 1), dif),
             )
+
+
+def rand_elems(field, n, seed, device):
+    """(n, L) elements below p from a seed: random words under a top word
+    below p's, led by the edges 0, 1 and p − 1."""
+    rng = np.random.RandomState(seed)
+    words = rng.randint(0, 1 << 32, (n, field.limbs), dtype=np.uint64)
+    words[:, -1] %= field.p >> (32 * (field.limbs - 1))
+    words[:3] = field.encode([0, 1, field.p - 1], mont=False)
+    return u32_tensor(words.astype(np.uint32), device)
+
+
+@pytest.mark.parametrize("field,log_n", [(FR, 18), (BLS_FR, 20)], ids=["bn254_fr", "bls12_381_fr"])
+def test_ntt_pass_matches_plain(cuda, field, log_n):
+    """K3's passes at the proves' domains, bit for bit against the plain
+    passes: each pass the plan splits a transform into, DIT and DIF, with
+    and without the Hadamard prologue and the scale epilogue; then the fused
+    h against the unfused plain pipeline, in 7 launches a transform's
+    passes."""
+    plan = N.NttPlan(1 << log_n, cuda, field)
+    x, b, c, scale = (rand_elems(field, 1 << log_n, seed, cuda) for seed in range(4))
+    d = plan.z_coset_inv
+    for s0, k in plan.passes:
+        for dif, tw in ((False, plan.fwd_tw), (True, plan.inv_tw)):
+            for had, sc in ((None, None), ((b, c, d), None), (None, scale), ((b, c, d), scale)):
+                got = N.ntt_pass(x, tw, s0, k, dif, hadamard=had, scale=sc, field=field)
+                want = N.ntt_pass_plain(x, tw, s0, k, dif, hadamard=had, scale=sc, field=field)
+                assert torch.equal(got, want), (s0, k, dif, had is None, sc is None)
+    curve = "bn254" if field is FR else "bls12_381"
+    _native.reset_launches()
+    h = plan.h_std(x, b, c)
+    assert _native.LAUNCHES[_native.counter_name("ntt_pass", curve)] == 7 * len(plan.passes)
+    assert _native.LAUNCHES[_native.counter_name("field_ew", curve)] == 0
+    assert torch.equal(h, plan.h_plain(x, b, c))
+    assert torch.equal(N.from_mont(plan.h_from_evals(x, b, c), field), h)
 
 
 @pytest.mark.parametrize("group", ["g1", "g2"])
@@ -356,7 +391,7 @@ def test_bls_prove_small_fixture(cuda):
     assert g16.verify(pk.vk, want["public_input"], proof)
     for k in ("bucket_madd_rows_bls12_381_g1", "bucket_madd_rows_bls12_381_g2",
               "masked_add_bls12_381_g1", "masked_add_bls12_381_g2",
-              "ntt_stage_bls12_381", "field_ew_bls12_381"):
+              "ntt_pass_bls12_381", "field_ew_bls12_381"):
         assert _native.LAUNCHES[k] > 0, k
 
 
