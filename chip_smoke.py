@@ -64,6 +64,25 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    equal prove_full's. The synthetic key has no setup behind it, so its
    proofs cannot pass the pairing check: the fixture is proved again with
    `affine_msm=True`, must equal the JAX proof and must verify.
+5b. setup_full: the Groth16 setup of MulChain(FULL_SEED, FULL_N) on the
+   card from random.Random(FULL_SEED), want_query=False: the device QAP
+   (K4), each query's fixed-base walk (one K1 launch) and affine codec (K7
+   batch inverse and products). Its line: stage wall times (the generator
+   tables on the host, the QAP, each query's walk and codec, the vk,
+   total), peak device memory (also less what the smoke held before the
+   setup), the launches (K1's, K4's and K7's go into
+   the kernel line as `setup_launches`). Checks: SETUP_SAMPLES rows of
+   each table, decoded, equal the host scalar multiplication of the
+   generator by that row's scalar, read back from the device QAP and
+   equal to the host formula on the replayed toxic waste (`MulChainQap`);
+   gamma_abc likewise; a_tbl's identity rows are where u = 0, h_tbl's one
+   identity row where bitrev(k) = n − 1; WALK_CHECK_LANES lanes of
+   a_tbl's walk (live lanes, 64 identity lanes among them) through K1
+   equal its plain version on the card.
+5c. prove_setup: the prove from that key at prove_full's (r, s) passes the
+   host pairing check; its stage times beside prove_full's (pooled
+   tables); the key saved to a temporary directory and loaded on the card
+   proves the same proof.
 6. msm_bench: `snark_tpu_torch.bench` on BN254 G1 at 2^20 points, signed
    c = 13, with the scan and with the batch-affine tree; G2 at 2^18 both
    ways; G1 unsigned c = 12 with the scan; every result equal to the pool
@@ -90,6 +109,9 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    reference's configuration 3 under SNARK_TPU_MSM_AFFINE=1), with the same
    checks; the affine tree must have engaged in all five MSMs and the proof
    must equal prove_full_bls's.
+10b. setup_full_bls, prove_setup_bls: the synthetic BLS12-381 key freed,
+   phases 5b and 5c for BLS12-381 MulChain(FULL_SEED, FULL_N_BLS), the
+   reference's configuration 3, with no save round trip.
 11. msm_bench_bls: `snark_tpu_torch.bench` on BLS12-381 G1 at 2^20 points
    and G2 at 2^18, signed c = 13, with the scan and with the batch-affine
    tree, every result equal to the pool oracle. Launch counts of this
@@ -189,6 +211,9 @@ PARTS_KERNELS = ("reduce_parts_chain", "bisect_chain")
 K1_BN254_G1 = "bucket_madd_rows_kernel<Fp<FqParams>"  # its instances: the body, 0-3
 # the curve kernels and the called product whose SASS the build line counts
 SASS_CURVE_KERNELS = ("bucket_madd_rows", "masked_add", "mont_mul_call")
+SETUP_SAMPLES = 64  # rows of each table the setup phases check on the host
+WALK_CHECK_LANES = 4096  # lanes of a_tbl's walk held against K1's plain version (64 identity)
+SETUP_KERNELS = ("bucket_madd_rows", "field_ew", "affine_tree_mul")  # K1, K4, K7
 MADD_PARTS_CHECK = (12, 8)  # log n and c of bench_madd_parts' whole-pipeline check
 SCRIPT_BODY_LINE = {"nosub": 73, "halfmul": 88, "nodecode": 98}  # scripts/bench_madd_parts.py
 
@@ -1104,6 +1129,209 @@ def phase_prove_full(key: SyntheticKey, z: list[int], device, affine_msm: bool =
     return info, launches, proof
 
 
+class MulChainQap:
+    """The setup's scalars of MulChain(FULL_SEED, n) on the host, from the
+    toxic waste replayed from random.Random(FULL_SEED): u, v, w of a
+    column from the circuit's matrices and L_j(τ) = (Z(τ)/n)·ω^j/(τ − ω^j),
+    and the l, h and gamma_abc scalars from them."""
+
+    def __init__(self, circuit, curve, n: int):
+        from snark_tpu_torch.fields.host import Fp
+
+        rng = random.Random(FULL_SEED)
+        self.alpha, self.beta, self.gamma, self.delta, self.tau = (
+            Fp(curve.fr).rand(rng) for _ in range(5))
+        self.p, self.n, self.circuit = curve.fr.modulus, n, circuit
+        self.omega = curve.fr.root_of_unity(n)
+        self.z_tau = (pow(self.tau, n, self.p) - 1) % self.p
+        self.cols = circuit.csr_columns()
+
+    def lagrange(self, j: int) -> int:
+        p, w = self.p, pow(self.omega, j, self.p)
+        return self.z_tau * pow(self.n, -1, p) % p * w % p * pow((self.tau - w) % p, -1, p) % p
+
+    def uvw(self, i: int) -> list[int]:
+        import numpy as np
+
+        out = []
+        for k, c in enumerate(self.cols):
+            s = sum(self.lagrange(int(j)) for j in np.nonzero(c[:, 0] == i)[0])
+            if k == 0 and i < self.circuit.num_instance:  # input-consistency row
+                s += self.lagrange(self.circuit.num_constraints + i)
+            out.append(s % self.p)
+        return out
+
+    def combined(self, i: int, inv: int) -> int:
+        u, v, w = self.uvw(i)
+        return (self.beta * u + self.alpha * v + w) * inv % self.p
+
+    def h(self, j: int) -> int:
+        p = self.p
+        return pow(self.tau, j, p) * self.z_tau % p * pow(self.delta, -1, p) % p
+
+
+def samples(size: int, rng: random.Random) -> list[int]:
+    """SETUP_SAMPLES indices below size: the ends and random ones."""
+    return sorted({0, 1, size - 1} | {rng.randrange(size) for _ in range(SETUP_SAMPLES - 3)})
+
+
+def phase_setup_full(curve, n_constraints: int, device, smi: str):
+    """The setup of MulChain(FULL_SEED, n_constraints) from
+    random.Random(FULL_SEED), want_query=False, on the card. Checks: for
+    SETUP_SAMPLES rows of each table, the scalar read back from the device
+    QAP equals the host formula on the replayed toxic waste and the decoded
+    row equals the host scalar multiplication of the generator by it;
+    gamma_abc likewise; a_tbl's identity rows lie exactly where u = 0, and
+    h_tbl's one identity row where bitrev(k) = n − 1; WALK_CHECK_LANES
+    lanes of a_tbl's walk (live ones, 64 identity lanes among them)
+    through K1 equal its plain version on the card.
+    -> (phase info, key, vk, the setup's launch counts)."""
+    import torch
+
+    from snark_tpu_torch import _native
+    from snark_tpu_torch.groth16 import Groth16
+    from snark_tpu_torch.models import MulChainCircuit
+    from snark_tpu_torch.ops import curve as C
+    from snark_tpu_torch.ops.fixed_base import FixedBase
+    from snark_tpu_torch.ops.ntt import bit_reverse_indices
+
+    circuit = MulChainCircuit(seed=FULL_SEED, n=n_constraints)
+    g16 = Groth16(curve, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what the smoke holds already
+    _native.reset_launches()
+    t = time.time()
+    pk, vk = g16.circuit_specific_setup(circuit, random.Random(FULL_SEED), want_query=False)
+    setup_s = time.time() - t
+    launches = dict(_native.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    run, fr = g16.last_setup, g16.fr
+    n, ni = pk.domain_size, pk.num_instance
+    m = ni + pk.num_witness
+    host = MulChainQap(circuit, curve, n)
+    p = host.p
+    delta_inv, gamma_inv = pow(host.delta, -1, p), pow(host.gamma, -1, p)
+    rev = bit_reverse_indices(n)
+
+    def read(name, i):
+        return fr.decode(run.scalars[name][i : i + 1], mont=False)[0]
+
+    def check(table, group, idxs, scalar_of):
+        """scalar_of(k) -> (index into the QAP's vector or None, host scalar)."""
+        hc = g16.hg1 if group == "g1" else g16.hg2
+        rows = getattr(pk, table)[torch.as_tensor(idxs, device=device)].cpu().numpy()
+        for k, pt in zip(idxs, C.rows_to_points(rows, group, curve)):
+            (name, at), want = scalar_of(k)
+            if name is not None and read(name, at) != want:
+                raise AssertionError(f"{table} row {k}: the device QAP's scalar differs")
+            if pt != hc.scalar_mul(hc.generator, want):
+                raise AssertionError(f"{table} row {k} differs from the host point")
+
+    srng = random.Random(5)
+    for table, group in (("a_tbl", "g1"), ("b_g1_tbl", "g1"), ("b_g2_tbl", "g2")):
+        k = 0 if table == "a_tbl" else 1
+        check(table, group, samples(m, srng),
+              lambda i, k=k: (("ab"[k], i), host.uvw(i)[k]))
+    check("l_tbl", "g1", samples(m - ni, srng),
+          lambda i: (("l", i), host.combined(ni + i, delta_inv)))
+    check("h_tbl", "g1", samples(n, srng),
+          lambda k: (("h", int(rev[k])), host.h(int(rev[k]))) if rev[k] < n - 1 else ((None, 0), 0))
+    for i, pt in enumerate(vk.gamma_abc_g1):
+        if pt != g16.hg1.scalar_mul(g16.hg1.generator, host.combined(i, gamma_inv)):
+            raise AssertionError(f"gamma_abc_g1[{i}] differs from the host point")
+    zero_u = run.scalars["a"].eq(0).all(1)
+    if not torch.equal(zero_u, pk.a_tbl[:, -1] == 0):
+        raise AssertionError("a_tbl's identity rows are not where u = 0")
+    h_ident = torch.nonzero(pk.h_tbl[:, -1] == 0).flatten().tolist()
+    if h_ident != [int(k) for k in range(n) if rev[k] == n - 1]:
+        raise AssertionError(f"h_tbl's identity rows are {h_ident}")
+
+    # live lanes (u ≠ 0: ONE, the seed and the x columns) with 64 identity
+    # lanes (the m columns) scattered among them
+    live_at, dead_at = torch.nonzero(~zero_u).flatten(), torch.nonzero(zero_u).flatten()
+    n_live = min(WALK_CHECK_LANES - 64, live_at.numel())
+    lanes = torch.cat([live_at[:n_live], dead_at[: WALK_CHECK_LANES - n_live]])
+    lanes = lanes[torch.randperm(lanes.numel(), generator=torch.Generator().manual_seed(6))
+                  .to(device)]
+    fb = FixedBase(curve, "g1", device)
+    ops = fb.walk_operands(run.scalars["a"][lanes].contiguous())
+
+    def walk_chunk():
+        return C.bucket_madd_rows(*ops[:1], fb.table, *ops[1:], 0, fb.W, "g1", curve)
+
+    got = walk_chunk()
+    want, plain_ms = plain_time(
+        lambda: C.bucket_madd_rows_plain(*ops[:1], fb.table, *ops[1:], 0, fb.W, "g1", curve))
+    walk = {"lanes": lanes.numel(), "live_lanes": n_live, "steps": fb.W, "max_abs_err": max_abs_err(got, want),
+            "ms": cuda_ms(walk_chunk), "plain_ms": plain_ms,
+            "a_walk_ms": cuda_ms(lambda: fb.walk(run.scalars["a"]))}
+    tables = ("a_tbl", "b_g1_tbl", "b_g2_tbl", "h_tbl", "l_tbl")
+    info = {
+        "curve": curve.name, "constraints": n_constraints, "m": m, "domain": n,
+        "nvidia_smi": smi, "setup_seconds": round(setup_s, 3),
+        "stage_ms": {k: round(v, 3) for k, v in run.stage_ms.items()},
+        "max_memory_allocated": peak, "held_before": held, "setup_peak_bytes": peak - held,
+        "table_bytes": sum(getattr(pk, t).numel() for t in tables),
+        "setup_launches": {k: v for k, v in launches.items() if v},
+        "sampled_rows": SETUP_SAMPLES, "sampled_equal": True,
+        "a_identity_rows": int(zero_u.sum()), "h_identity_rows": h_ident, "walk_check": walk,
+    }
+    return info, pk, vk, launches
+
+
+def phase_prove_setup(pk, vk, curve, z: list[int], device, pooled: dict, save: bool) -> dict:
+    """Prove MulChain from the setup's key at prove_full's (r, s); the host
+    pairing check must pass. Its stage times beside `pooled`, those of the
+    same prove on the synthetic key of pooled tables. With `save`, the key
+    goes to a temporary directory (`ProvingKey.save`), is read back on the
+    card (`ProvingKey.load`) and must prove the same proof."""
+    import tempfile
+
+    import torch
+
+    from snark_tpu_torch.groth16 import Groth16, ProvingKey
+
+    p = curve.fr.modulus
+    rng = random.Random(2024)
+    r, s = rng.randrange(p), rng.randrange(p)
+    g16 = Groth16(curve, device=device)
+    g16.ntt_plan(pk.domain_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # the key, and what the smoke holds already
+    t = time.time()
+    proof = g16.prove_from_assignment(pk, z, r, s)
+    prove_s = time.time() - t
+    stages = g16.last_run.stage_ms
+    t = time.time()
+    if not g16.verify(vk, [FULL_SEED], proof):
+        raise AssertionError(f"the {curve.name} proof from the setup's key does not verify")
+    info = {
+        "curve": curve.name, "prove_seconds": round(prove_s, 3), "verifies": True,
+        "verify_seconds": round(time.time() - t, 3),
+        "stage_ms": {k: round(v, 3) for k, v in stages.items()},
+        "pooled_stage_ms": pooled,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(), "held_before": held,
+        "prove_peak_bytes": torch.cuda.max_memory_allocated() - held,
+    }
+    if save:
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "pk.npz")
+            t = time.time()
+            pk.save(path)
+            save_s, size = time.time() - t, os.path.getsize(path)
+            t = time.time()
+            loaded = ProvingKey.load(path, device=device)
+            load_s = time.time() - t
+            if g16.prove_from_assignment(loaded, z, r, s) != proof:
+                raise AssertionError("the reloaded key proves another proof")
+        info["save_round_trip"] = {"equal_proof": True, "file_bytes": size,
+                                   "save_seconds": round(save_s, 3),
+                                   "load_seconds": round(load_s, 3)}
+    return info
+
+
 def phase_msm_bench(inputs: dict, smi: str, unsigned: bool = True) -> tuple[dict, dict]:
     """`snark_tpu_torch.bench` runs on the inputs' curve, each exact against
     the pool oracle: G1 and G2 signed, scan and affine, and (`unsigned`) G1
@@ -1448,6 +1676,15 @@ def main() -> int:
     phase_line("prove_full_affine", t0, equals_prove_full=True, fixture=fixture_a, **info_a)
 
     t0 = time.time()
+    info_s, pk_s, vk_s, setup_launches = phase_setup_full(key.curve, FULL_N, device, smi)
+    phase_line("setup_full", t0, **info_s)
+    t0 = time.time()
+    phase_line("prove_setup", t0, **phase_prove_setup(
+        pk_s, vk_s, key.curve, z, device, info["stage_ms"], save=True))
+    del pk_s, vk_s
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
     info_b, bench_launches = phase_msm_bench(inputs, smi)
     phase_line("msm_bench", t0, **info_b, launches={k: v for k, v in bench_launches.items() if v})
 
@@ -1486,7 +1723,17 @@ def main() -> int:
     if not all(info_bls_a["affine_engaged"].values()):
         raise AssertionError(f"the affine tree did not engage: {info_bls_a['affine_engaged']}")
     phase_line("prove_full_bls_affine", t0, nvidia_smi=smi, equals_prove_full=True, **info_bls_a)
-    del key_bls, z_bls
+    del key_bls
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    info_sb, pk_sb, vk_sb, setup_launches_bls = phase_setup_full(BLS12_381, FULL_N_BLS, device,
+                                                                 smi)
+    phase_line("setup_full_bls", t0, **info_sb)
+    t0 = time.time()
+    phase_line("prove_setup_bls", t0, **phase_prove_setup(
+        pk_sb, vk_sb, BLS12_381, z_bls, device, info_bls["stage_ms"], save=False))
+    del pk_sb, vk_sb, z_bls
     torch.cuda.empty_cache()
 
     t0 = time.time()
@@ -1525,6 +1772,14 @@ def main() -> int:
             if row["launches"] is None:
                 path = field_launches if row["name"].startswith("mont_mul16") else counts
                 row["launches"] = path.get(row["name"], 0)
+    # K1's, K4's and K7's launches in the setups, beside those of their paths
+    for group, counts in ((rows + msm_rows, setup_launches),
+                          (bls_rows + bls_msm_rows, setup_launches_bls)):
+        for row in group:
+            if row["name"].startswith(SETUP_KERNELS):
+                row["setup_launches"] = counts.get(row["name"], 0)
+                if not row["setup_launches"]:
+                    raise AssertionError(f"the setup did not launch {row['name']}")
     rows = (rows + bls_rows + msm_rows + bls_msm_rows + vpu_rows + parts_rows + bisect_rows
             + madd_rows)
     for row in rows:

@@ -51,6 +51,15 @@ class Fp:
     def pow(self, a: int, e: int) -> int:
         return pow(a, e % (self.p - 1) if e < 0 else e, self.p)
 
+    def rand(self, rng) -> int:
+        """Uniform field element by rejection sampling on num_bits: the same
+        draws from the same `random.Random` as the JAX package's."""
+        nbits = self.params.num_bits
+        while True:
+            x = int(rng.getrandbits(nbits))
+            if x < self.p:
+                return x
+
     def legendre(self, a: int) -> int:
         """1 if QR, -1 if QNR, 0 if zero."""
         if a == 0:

@@ -137,6 +137,13 @@ def pack16_to_u32(arr16: np.ndarray) -> np.ndarray:
     return (pairs[..., 0] | (pairs[..., 1] << 16)).astype(np.uint32)
 
 
+def split_u32_to16(words: np.ndarray) -> np.ndarray:
+    """(..., L) uint32 limbs (or their int32 bits) -> (..., 2L) 16-bit limbs
+    in uint32 lanes, low first: the inverse of pack16_to_u32."""
+    w = np.ascontiguousarray(words).view(np.uint32)
+    return np.stack([w & 0xFFFF, w >> 16], axis=-1).reshape(w.shape[:-1] + (-1,))
+
+
 # ---------------------------------------------------------------------------
 # plain arithmetic: 32-bit words in int64, products through 16-bit digits
 # ---------------------------------------------------------------------------

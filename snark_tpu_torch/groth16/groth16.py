@@ -1,7 +1,11 @@
-"""Groth16 prove and verify over BN254 and BLS12-381 on one CUDA device.
+"""Groth16 setup, prove and verify over BN254 and BLS12-381 on one CUDA
+device.
 
-Counterpart of the JAX package's `groth16/groth16.py`: `ProvingKey.load`
-reads the npz files that the JAX package's `ProvingKey.save` writes, and
+Counterpart of the JAX package's `groth16/groth16.py`: `ProvingKey.save`
+and `ProvingKey.load` write and read its npz files, `pk_to_bytes` and
+`pk_from_bytes` its arkworks key bytes, `circuit_specific_setup` is its
+setup (the device QAP on K4, the fixed-base walk on K1 and the affine
+codec on K7; the same key from the same rng), and
 `Groth16.prove_from_assignment` is `_prove_from_assignment` on its plane
 branch. The reference takes that branch from m = 2048 variables and a
 legacy XLA path below; the port runs the plane path at every size, and the
@@ -28,25 +32,33 @@ Proofs follow the arkworks conventions (eprint 2016/260):
 
 from __future__ import annotations
 
+import random
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
 import torch
 
+from ..fields.host import Fp
 from ..fields.limbs import fields_of
 from ..fields.params import BLS12_381, BN254, CurveParams, get_curve
-from ..ops.curve import row_bytes
+from ..ops.affine_codec import points_to_query, query_to_points
+from ..ops.curve import pack_rows_u8, row_bytes, rows_to_points
 from ..ops.curve_host import host_g1, host_g2
+from ..ops.fixed_base import FixedBase
 from ..ops.msm import pick_window_plane_signed, signed_digits
 from ..ops.msm_plane import PlaneMsm
-from ..ops.ntt import NttPlan, to_mont
+from ..ops.ntt import NttPlan, bit_reverse_indices, from_mont, to_mont
 from .pairing import get_pairing
-from .qap import PaddedCsr, matvec
+from .qap import PaddedCsr, domain_size_for, matvec
+from .qap_device import combine_uvw_device, evaluate_uvw_device, powers_device
 
 PORTED_CURVES = (BN254, BLS12_381)
-QUERY_NAMES = ("a_query", "b_g1_query", "b_g2_query", "h_query", "l_query")
+# the key's five query vectors in the arkworks key's order, and their
+# groups: vector X has the u8 table X_tbl and the legacy query X_query
+VECTORS = (("a", "g1"), ("b_g1", "g1"), ("b_g2", "g2"), ("h", "g1"), ("l", "g1"))
+QUERY_NAMES = tuple(f"{stem}_query" for stem, _ in VECTORS)
 
 
 def resolve_device(device) -> torch.device:
@@ -101,12 +113,18 @@ class ProvingKey:
     num_witness: int
     num_constraints: int
     domain_size: int
-    # the file, for the legacy projective query arrays (read when asked for)
+    # the file the key was read from, and the legacy query arrays in it
+    # (read when asked for)
     path: str | None = None
+    file_queries: frozenset = frozenset()
+    # legacy (N, 3, K·2L) uint32 query arrays held on the host, by name
+    # (`QUERY_NAMES`), where the setup made them
+    queries: dict = field(default_factory=dict)
 
     @staticmethod
     def load(path: str, device="cuda") -> "ProvingKey":
-        """Read an npz written by the JAX package's `ProvingKey.save`."""
+        """Read an npz written by `save` or by the JAX package's
+        `ProvingKey.save`."""
         from ..snark import serialize as ser
 
         dev = resolve_device(device)
@@ -148,21 +166,82 @@ class ProvingKey:
                 num_constraints=sizes[2],
                 domain_size=sizes[3],
                 path=path,
+                file_queries=frozenset(QUERY_NAMES).intersection(z.files),
             )
 
+    def query_names(self) -> list[str]:
+        """The legacy query arrays this key has: those it holds, or those
+        in its file. Keys saved with SNARK_TPU_SETUP_QUERY=0 (the
+        reference) or from a setup with want_query=False lack some."""
+        return [name for name in QUERY_NAMES if name in self.queries or name in self.file_queries]
+
     def query(self, name: str) -> np.ndarray:
-        """A legacy (N, 3, K·16) query array. Keys saved with
-        SNARK_TPU_SETUP_QUERY=0 lack some of them."""
+        """A legacy (N, 3, K·2L) uint32 query array."""
         if name not in QUERY_NAMES:
             raise KeyError(name)
+        if name in self.queries:
+            return self.queries[name]
+        if name not in self.file_queries:
+            raise ValueError(
+                f"the key has no {name}: it was made without its query arrays"
+                " (want_query=False, or the reference's SNARK_TPU_SETUP_QUERY=0);"
+                " only the u8 row tables and the matrices are in it"
+            )
         with np.load(self.path, allow_pickle=False) as z:
-            if name not in z.files:
-                raise ValueError(
-                    f"{self.path} has no {name}: the key was saved without its"
-                    " query arrays (SNARK_TPU_SETUP_QUERY=0); only the u8 row"
-                    " tables and the matrices are in the file"
-                )
             return z[name]
+
+    def save(self, path: str) -> None:
+        """Write what the JAX package's `ProvingKey.save` writes, under the
+        same names, dtypes and shapes (`np.savez_compressed`): the vk and
+        beta_g1, delta_g1 in the arkworks byte layout, the query arrays the
+        key has, the five u8 tables, the three matrices in the reference's
+        CSR form, and the sizes."""
+        from ..snark import serialize as ser
+
+        curve = self.vk.curve
+        mats = {}
+        for name in ("mat_a", "mat_b", "mat_c"):
+            mats[name + "_cols"], mats[name + "_coeffs"] = getattr(self, name).to_reference()
+        np.savez_compressed(
+            path,
+            vk=np.frombuffer(ser.serialize_vk(self.vk), dtype=np.uint8),
+            curve=curve.name,
+            beta_g1=np.frombuffer(ser.serialize_g1(curve, self.beta_g1), dtype=np.uint8),
+            delta_g1=np.frombuffer(ser.serialize_g1(curve, self.delta_g1), dtype=np.uint8),
+            **{name: self.query(name) for name in self.query_names()},
+            **{f"{stem}_tbl": getattr(self, f"{stem}_tbl").cpu().numpy() for stem, _ in VECTORS},
+            **mats,
+            sizes=np.asarray(
+                [self.num_instance, self.num_witness, self.num_constraints, self.domain_size],
+                dtype=np.int64,
+            ),
+        )
+
+
+@dataclass
+class SetupRun:
+    """What the last setup left behind for inspection: stage wall times
+    (milliseconds, each ending in a device synchronise) and the query
+    vectors' scalars read back from the device QAP (canonical standard
+    form): "a" (u), "b" (v), "h" (coefficient order) and "l"."""
+
+    stage_ms: dict
+    scalars: dict
+
+
+def _stage_clock(device: torch.device, stage_ms: dict):
+    """-> tick(label): the wall time since the last tick, ending in a
+    device synchronise, into stage_ms[label]."""
+    t = [time.perf_counter()]
+
+    def tick(label):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        now = time.perf_counter()
+        stage_ms[label] = (now - t[0]) * 1e3
+        t[0] = now
+
+    return tick
 
 
 def assemble_proof(g16, pk, A_sum, B_sum, B1_sum, L_sum, H_sum, r, s) -> Proof:
@@ -212,6 +291,7 @@ class Groth16:
         self._ntt: dict[int, NttPlan] = {}
         self._msm: dict[tuple, PlaneMsm] = {}
         self.last_run: ProveRun | None = None
+        self.last_setup: SetupRun | None = None
 
     def ntt_plan(self, n: int) -> NttPlan:
         if n not in self._ntt:
@@ -276,16 +356,7 @@ class Groth16:
         if pk.vk.curve is not self.curve:
             raise ValueError(f"a {pk.vk.curve.name} key for a {self.curve.name} prover")
         stage_ms = {}
-        t = [time.perf_counter()]
-        on_cuda = self.device.type == "cuda"
-
-        def tick(label):
-            if on_cuda:
-                torch.cuda.synchronize(self.device)
-            now = time.perf_counter()
-            stage_ms[label] = (now - t[0]) * 1e3
-            t[0] = now
-
+        tick = _stage_clock(self.device, stage_ms)
         z_std = self.fr.tensor(z, self.device, mont=False)
         tick("upload")
         a, b, c = self.witness_evals(pk, z_std)
@@ -299,6 +370,147 @@ class Groth16:
         tick("assemble")
         self.last_run = ProveRun(stage_ms, sums, h_std, affine)
         return proof
+
+    # ----- setup ---------------------------------------------------------------
+    def circuit_specific_setup(self, circuit, rng: random.Random, want_query: bool = True):
+        """-> (ProvingKey, VerifyingKey) for a circuit that gives its
+        matrices (`coo_arrays`; MulChain so far), the reference's
+        `circuit_specific_setup` with its key layout: the toxic waste α, β,
+        γ, δ, τ drawn in that order from rng as the reference draws them;
+        u, v, w at τ by the device QAP (K4); the five query vectors
+        through the fixed-base walk (K1) and the affine codec (K7):
+        a_tbl from u, b_g1_tbl and b_g2_tbl from v, l_tbl from
+        (βu + αv + w)/δ over the witness columns, h_tbl from τ^j·Z(τ)/δ
+        for j < n − 1 in bit-reversed order (row k holds coefficient
+        bitrev(k), the identity row where bitrev(k) = n − 1);
+        gamma_abc_g1 from (βu + αv + w)/γ over the instance columns, and
+        the vk, beta_g1, delta_g1 by host scalar multiplications. The
+        matrices come from the circuit's COO arrays. want_query=False is
+        the reference's SNARK_TPU_SETUP_QUERY=0: the vectors of 2048 or
+        more points then leave out their legacy query arrays."""
+        fr, dev = self.fr, self.device
+        p = self.curve.fr.modulus
+        stage_ms = {}
+        tick = _stage_clock(dev, stage_ms)
+        nc, ni, m = circuit.num_constraints, circuit.num_instance, circuit.num_variables
+        n = domain_size_for(nc, ni)
+        host_fr = Fp(self.curve.fr)
+        alpha, beta, gamma, delta, tau = (host_fr.rand(rng) for _ in range(5))
+        gamma_inv, delta_inv = pow(gamma, -1, p), pow(delta, -1, p)
+        coo, values = circuit.coo_arrays(p)
+        fixed = {g: FixedBase(self.curve, g, dev) for g in ("g1", "g2")}
+        for fb in fixed.values():
+            fb.table  # noqa: B018  (built on the host once per curve and group)
+        tick("tables")
+
+        u, v, w, z_tau = evaluate_uvw_device(fr, coo, values, nc, ni, m, tau, dev)
+        gabc_m, l_m = combine_uvw_device(fr, u, v, w, beta, alpha, gamma_inv, delta_inv, ni)
+        h_m = powers_device(fr, tau, n - 1, dev, scale=z_tau * delta_inv % p)
+        scalars = {name: from_mont(x, fr) for name, x in (("a", u), ("b", v), ("h", h_m),
+                                                         ("l", l_m))}
+        tick("qap")
+
+        tables, queries = {}, {}
+        for stem, group in VECTORS:
+            P = fixed[group].points(scalars[stem[0]])  # "a", "b", "h", "l"
+            tick(f"walk {stem}")
+            tables[f"{stem}_tbl"], q = fixed[group].encode(P, want_query)
+            if q is not None:
+                queries[f"{stem}_query"] = q
+            tick(f"codec {stem}")
+        # h_tbl row k holds coefficient bitrev(k); coefficient n - 1 has no
+        # point (row n - 1 of the padded rows: the identity)
+        ident = torch.as_tensor(pack_rows_u8([None], "g1", self.curve), device=dev)
+        rev = torch.as_tensor(bit_reverse_indices(n), device=dev)
+        tables["h_tbl"] = torch.cat([tables["h_tbl"], ident])[rev]
+
+        g1, g2 = self.hg1, self.hg2
+        vk = VerifyingKey(
+            curve=self.curve,
+            alpha_g1=g1.scalar_mul(g1.generator, alpha),
+            beta_g2=g2.scalar_mul(g2.generator, beta),
+            gamma_g2=g2.scalar_mul(g2.generator, gamma),
+            delta_g2=g2.scalar_mul(g2.generator, delta),
+            gamma_abc_g1=[g1.scalar_mul(g1.generator, s) for s in fr.decode(gabc_m)],
+        )
+        mat_a, mat_b, mat_c = (PaddedCsr.from_coo(c, values, fr, nc, dev) for c in coo)
+        pk = ProvingKey(
+            vk=vk,
+            beta_g1=g1.scalar_mul(g1.generator, beta),
+            delta_g1=g1.scalar_mul(g1.generator, delta),
+            **tables,
+            mat_a=mat_a,
+            mat_b=mat_b,
+            mat_c=mat_c,
+            num_instance=ni,
+            num_witness=m - ni,
+            num_constraints=nc,
+            domain_size=n,
+            queries=queries,
+        )
+        tick("vk")
+        stage_ms["total"] = sum(stage_ms.values())
+        self.last_setup = SetupRun(stage_ms, scalars)
+        return pk, vk
+
+    # the CircuitSpecificSetupSNARK::setup default
+    setup = circuit_specific_setup
+
+    # ----- the proving key's canonical bytes -----------------------------------
+    def query_points(self, pk: ProvingKey) -> list[list]:
+        """The five queries as host affine points, in the arkworks key's
+        order (a, b_g1, b_g2, h, l): from the legacy query arrays where the
+        key has them, else from the u8 rows (h in coefficient order)."""
+        have = pk.query_names()
+        rev = bit_reverse_indices(pk.domain_size)
+        out = []
+        for stem, group in VECTORS:
+            if f"{stem}_query" in have:
+                out.append(query_to_points(pk.query(f"{stem}_query"), group, self.curve))
+                continue
+            rows = getattr(pk, f"{stem}_tbl").cpu().numpy()
+            if stem == "h":
+                rows = rows[rev[: pk.domain_size - 1]]
+            out.append(rows_to_points(rows, group, self.curve))
+        return out
+
+    def pk_to_bytes(self, pk: ProvingKey, compress: bool = True) -> bytes:
+        """The arkworks ProvingKey bytes: vk ‖ beta_g1 ‖ delta_g1 ‖ the five
+        affine query Vecs."""
+        from ..snark import serialize as ser
+
+        return ser.serialize_pk_points(pk.vk, pk.beta_g1, pk.delta_g1, *self.query_points(pk),
+                                       compress)
+
+    def pk_from_bytes(self, data: bytes, circuit, compress: bool = True) -> ProvingKey:
+        """A ProvingKey on this prover's device from arkworks bytes. The
+        bytes carry the points alone; the matrices come from the circuit
+        (`coo_arrays`), and the queries are held as the legacy affine
+        arrays (Z = 1), as the reference rebuilds them."""
+        from ..snark import serialize as ser
+
+        vk, beta_g1, delta_g1, pts = ser.deserialize_pk_points(data, self.curve, compress)
+        nc, ni, m = circuit.num_constraints, circuit.num_instance, circuit.num_variables
+        n = domain_size_for(nc, ni)
+        if len(pts[3]) != n - 1 or len(pts[0]) != m:
+            raise ValueError(f"the bytes hold {len(pts[0])} and {len(pts[3])} points, the"
+                             f" circuit needs {m} and {n - 1}")
+        rev = bit_reverse_indices(n)
+        tables, queries = {}, {}
+        for (stem, group), q in zip(VECTORS, pts):
+            queries[f"{stem}_query"] = points_to_query(q, group, self.curve)
+            rows = [q[j] if j < n - 1 else None for j in rev] if stem == "h" else q
+            tables[f"{stem}_tbl"] = torch.as_tensor(pack_rows_u8(rows, group, self.curve),
+                                                    device=self.device)
+        coo, values = circuit.coo_arrays(self.curve.fr.modulus)
+        mat_a, mat_b, mat_c = (PaddedCsr.from_coo(c, values, self.fr, nc, self.device)
+                               for c in coo)
+        return ProvingKey(
+            vk=vk, beta_g1=beta_g1, delta_g1=delta_g1, **tables,
+            mat_a=mat_a, mat_b=mat_b, mat_c=mat_c,
+            num_instance=ni, num_witness=m - ni, num_constraints=nc, domain_size=n,
+            queries=queries,
+        )
 
     # ----- verify (host pairing) ---------------------------------------------
     def process_vk(self, vk: VerifyingKey) -> PreparedVerifyingKey:

@@ -1,7 +1,8 @@
 """R1CS -> QAP witness map: the padded-CSR matvec over K4.
 
 Counterpart of the JAX package's `groth16/qap.py` (`PaddedCsr`,
-`WitnessMapPlan.matvec`, `domain_size_for`). The evaluation domain is
+`PaddedCsr.from_coo`, `WitnessMapPlan.matvec`, `domain_size_for`). The
+evaluation domain is
 num_constraints + num_instance rounded up to a power of two; the A side
 gets one input-consistency row per instance variable (libsnark reduction).
 """
@@ -13,7 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..fields.limbs import FR, Field, pack16_to_u32, u32_tensor
+from ..fields.limbs import FR, Field, pack16_to_u32, split_u32_to16, u32_tensor
 from ..ops.ntt import field_ew
 
 
@@ -41,6 +42,34 @@ class PaddedCsr:
             coeffs,
             int(cols.shape[0]),
         )
+
+    @staticmethod
+    def from_coo(coo, values: list[int], field: Field, num_rows: int, device) -> "PaddedCsr":
+        """From one matrix of a circuit's `coo_arrays` (indptr, col, cid),
+        vectorised: row i's entries fill its first slots in order, absent
+        slots hold (column 0, coefficient 0), and coefficient id
+        len(values) is the literal zero. The width is the longest row."""
+        indptr, col, cid = coo
+        lens = np.diff(indptr)
+        width = max(1, int(lens.max()) if len(lens) else 1)
+        row_of = np.repeat(np.arange(len(lens), dtype=np.int64), lens)
+        inner = np.arange(int(indptr[-1]), dtype=np.int64) - np.repeat(indptr[:-1], lens)
+        flat = row_of * width + inner
+        cols = np.zeros(num_rows * width, np.int64)
+        cols[flat] = col
+        ids = np.full(num_rows * width, len(values), np.int64)
+        ids[flat] = cid
+        table = field.encode(list(values) + [0])  # (V + 1, L) Montgomery
+        coeffs = u32_tensor(table[ids].reshape(num_rows, width, field.limbs), device)
+        return PaddedCsr(torch.as_tensor(cols.reshape(num_rows, width), device=device),
+                         coeffs, num_rows)
+
+    def to_reference(self) -> tuple[np.ndarray, np.ndarray]:
+        """-> the reference's arrays (the inverse of `from_reference`): cols
+        (rows, width) int32 and coeffs (rows, width, 16) uint32, each u32
+        word split into two 16-bit limbs."""
+        return (self.cols.cpu().numpy().astype(np.int32),
+                split_u32_to16(self.coeffs.cpu().numpy()))
 
 
 def matvec(mat: PaddedCsr, z_mont: torch.Tensor, field: Field = FR) -> torch.Tensor:

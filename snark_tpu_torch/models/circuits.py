@@ -1,8 +1,11 @@
 """Benchmark circuits, as witnesses and matrices.
 
-The relations layer (synthesis) is not ported yet, so a circuit here
-gives its full assignment and its constraint matrices directly, in the
-order the JAX package's synthesis produces them.
+The relations layer (synthesis) is not ported yet, so a circuit here is
+written out by hand: it gives its full assignment and its constraint
+matrices directly, in the order the JAX package's synthesis produces them
+(`coo_arrays` is what that synthesis's `to_coo_arrays` returns). MulChain
+is the only such circuit so far; synthesis, and with it any other circuit,
+is the next slice.
 """
 
 from __future__ import annotations
@@ -30,6 +33,10 @@ class MulChainCircuit:
     def num_variables(self) -> int:
         return self.num_instance + 2 * self.n
 
+    @property
+    def num_constraints(self) -> int:
+        return self.n
+
     def assignment(self, p: int) -> list[int]:
         """[1, seed, m_0..m_{n-1}, x_1..x_n] mod p."""
         x = self.seed % p
@@ -50,3 +57,14 @@ class MulChainCircuit:
         x_at = 2 + n + np.arange(n)  # x_1..x_n
         a = np.concatenate([[1], x_at[:-1]])
         return tuple(v.astype(np.int32).reshape(n, 1) for v in (a, m_at, x_at))
+
+    def coo_arrays(self, p: int) -> tuple[list, list[int]]:
+        """The matrices as the JAX synthesis gives them over the scalar
+        field p: ([(indptr, col, cid)] for A, B and C, interner values).
+        indptr (n + 1,) int64 row offsets, col and cid (nnz,) int32 column
+        and coefficient id of each entry; id len(values) would be the
+        literal zero. The interner holds 1 and −1, and every entry of
+        MulChain is a 1 (id 0)."""
+        indptr = np.arange(self.n + 1, dtype=np.int64)
+        cid = np.zeros(self.n, np.int32)
+        return [(indptr, c[:, 0].copy(), cid) for c in self.csr_columns()], [1, p - 1]

@@ -287,30 +287,39 @@ def affine_inverse(a: torch.Tensor, group: str = "g1", curve: CurveParams = BN25
 # ---------------------------------------------------------------------------
 
 
-def batch_inverse(den: torch.Tensor, group: str = "g1", curve: CurveParams = BN254) -> torch.Tensor:
-    """Inverses of (M, K, L) nonzero elements by a product tree: the
+def tree_inverse(x: torch.Tensor, mul, inv_root, one: torch.Tensor) -> torch.Tensor:
+    """Inverses of (M, ...) nonzero elements by a product tree: the
     up-sweep multiplies element i with element i + m (the halves of the
-    level; an odd level is padded with one), one K7 inverse at the width-1
-    root, and the down-sweep gives the left child inv·right and the right
-    child inv·left. 3·ceil(log2 M) + 1 launches of K7."""
+    level; an odd level is padded with `one`, a (1, ...) element),
+    inv_root inverts the width-1 root, and the down-sweep gives the left
+    child inv·right and the right child inv·left. 3·ceil(log2 M) calls of
+    mul(a, b), one of inv_root."""
     levels = []
-    x = den
     while x.shape[0] > 1:
         w = x.shape[0]
         if w % 2:
-            one = from_words(_field_one(GROUPS[group], fields_of(curve)[1], x.device))
             x = torch.cat([x, one])
         m = x.shape[0] // 2
         levels.append((x, w))
-        x = affine_tree_mul(x[:m], x[m:], group, curve=curve)
-    inv = affine_inverse(x, group, curve)
+        x = mul(x[:m], x[m:])
+    inv = inv_root(x)
     for x, w in reversed(levels):
         m = x.shape[0] // 2
-        out = torch.empty_like(x)
-        affine_tree_mul(inv, x[m:], group, out=out[:m], curve=curve)
-        affine_tree_mul(inv, x[:m], group, out=out[m:], curve=curve)
-        inv = out[:w]
+        inv = torch.cat([mul(inv, x[m:]), mul(inv, x[:m])])[:w]
     return inv
+
+
+def batch_inverse(den: torch.Tensor, group: str = "g1", curve: CurveParams = BN254) -> torch.Tensor:
+    """Inverses of (M, K, L) nonzero elements of Fq (G1) or Fq2 (G2):
+    `tree_inverse` on K7, its products in mode 0 and the root in mode 1.
+    3·ceil(log2 M) + 1 launches of K7."""
+    one = from_words(_field_one(GROUPS[group], fields_of(curve)[1], den.device))
+    return tree_inverse(
+        den,
+        lambda a, b: affine_tree_mul(a, b, group, curve=curve),
+        lambda r: affine_inverse(r, group, curve),
+        one,
+    )
 
 
 def pick_block_size(mean_len: int) -> int:

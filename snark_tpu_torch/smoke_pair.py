@@ -7,18 +7,19 @@ Runs phases of `chip_smoke.py` from another checkout of the repository
 this one, each run a process of its own, in the order other, this, this,
 other: both trees meet the same card, clocks and neighbours, and a drift
 over the call shows as a difference between the two runs of one tree.
-PHASES is a comma-separated subset of kernels, prove_full, msm_bench,
-kernels_bls, prove_full_bls, msm_bench_bls, bench_madd_parts (default:
-all of them). Each run builds its tree's kernels first (both trees' builds
-run together before the first turn), calls that tree's own phase functions
-and prints their JSON lines; this process tags every line with its tree
-and turn and prints at the end one JSON line `{"pair": ...}`: for each
-kernel row, ms in the four turns (K3's also a transform, the h pipeline
-and one stage); for each msm_bench record, adds/s and its
-`stage_ms.combine`; the `h` and `msm *` stages of the proves; the K1
-scans of bench_madd_parts. Every
-number is measured on the card by the phase that prints it. Exits
-non-zero if a run fails. Needs one card.
+PHASES is a comma-separated subset of kernels, prove_full, setup_full,
+prove_setup, msm_bench, kernels_bls, prove_full_bls, setup_full_bls,
+prove_setup_bls, msm_bench_bls, bench_madd_parts (default: all of them;
+a tree whose chip_smoke.py has no setup phases skips those). Each run
+builds its tree's kernels first (both trees' builds run together before
+the first turn), calls that tree's own phase functions and prints their
+JSON lines; this process tags every line with its tree and turn and
+prints at the end one JSON line `{"pair": ...}`: for each kernel row, ms
+in the four turns (K3's also a transform, the h pipeline and one stage);
+for each msm_bench record, adds/s and its `stage_ms.combine`; the `h`
+and `msm *` stages of the proves; the setups' stages; the K1 scans of
+bench_madd_parts. Every number is measured on the card by the phase that
+prints it. Exits non-zero if a run fails. Needs one card.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ import subprocess
 import sys
 import time
 
-PHASES = ("kernels", "prove_full", "msm_bench", "kernels_bls", "prove_full_bls", "msm_bench_bls",
+PHASES = ("kernels", "prove_full", "setup_full", "prove_setup", "msm_bench", "kernels_bls",
+          "prove_full_bls", "setup_full_bls", "prove_setup_bls", "msm_bench_bls",
           "bench_madd_parts")
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -41,7 +43,8 @@ sys.path.insert(0, ".")
 import torch
 import chip_smoke as S
 from snark_tpu_torch import bench as B
-from snark_tpu_torch.fields.params import BLS12_381
+from snark_tpu_torch.fields.params import BLS12_381, BN254
+from snark_tpu_torch.models import MulChainCircuit
 
 phases = set(sys.argv[1].split(","))
 device = torch.device("cuda")
@@ -55,29 +58,41 @@ def line(name, t0, **info):
 t0 = time.time()
 build = S.phase_build()
 line("build", t0, nvcc_seconds=build["nvcc_seconds"], nvidia_smi=smi)
-for curve, n_full, sfx in ((None, S.FULL_N, ""), (BLS12_381, S.FULL_N_BLS, "_bls")):
-    if not phases & {"kernels" + sfx, "prove_full" + sfx, "msm_bench" + sfx}:
-        continue
-    key = S.SyntheticKey(n_full, seed=1, device=device, curve=curve)
-    z = key.circuit.assignment(key.curve.fr.modulus)
-    inputs = {g: B.make_inputs(S.BENCH_LOG_N[g], signed=True, c=S.BENCH_C, group=g,
-                               device=device, curve=key.curve) for g in ("g1", "g2")}
-    if "kernels" + sfx in phases:
-        t0 = time.time()
-        rows = S.phase_kernels(key, key.fr.tensor(z, device, mont=False), device)
+for curve, n_full, sfx in ((BN254, S.FULL_N, ""), (BLS12_381, S.FULL_N_BLS, "_bls")):
+    z = MulChainCircuit(seed=S.FULL_SEED, n=n_full).assignment(curve.fr.modulus)
+    pooled = {}
+    if phases & {"kernels" + sfx, "prove_full" + sfx, "msm_bench" + sfx}:
+        key = S.SyntheticKey(n_full, seed=1, device=device, curve=curve)
+        inputs = {g: B.make_inputs(S.BENCH_LOG_N[g], signed=True, c=S.BENCH_C, group=g,
+                                   device=device, curve=curve) for g in ("g1", "g2")}
+        if "kernels" + sfx in phases:
+            t0 = time.time()
+            rows = S.phase_kernels(key, key.fr.tensor(z, device, mont=False), device)
+            torch.cuda.empty_cache()
+            msm_rows, extra = S.phase_kernels_msm(inputs, device)
+            line("kernels" + sfx, t0, kernels=rows + msm_rows, **extra)
+        if "prove_full" + sfx in phases:
+            t0 = time.time()
+            info, _, _ = S.phase_prove_full(key, z, device)
+            pooled = info["stage_ms"]
+            line("prove_full" + sfx, t0, **info)
+        if "msm_bench" + sfx in phases:
+            t0 = time.time()
+            info, _ = S.phase_msm_bench(inputs, smi, unsigned=not sfx)
+            line("msm_bench" + sfx, t0, **info)
+        del key, inputs
         torch.cuda.empty_cache()
-        msm_rows, extra = S.phase_kernels_msm(inputs, device)
-        line("kernels" + sfx, t0, kernels=rows + msm_rows, **extra)
-    if "prove_full" + sfx in phases:
+    # the setup phases, in a tree whose chip_smoke.py has them
+    if phases & {"setup_full" + sfx, "prove_setup" + sfx} and hasattr(S, "phase_setup_full"):
         t0 = time.time()
-        info, _, _ = S.phase_prove_full(key, z, device)
-        line("prove_full" + sfx, t0, **info)
-    if "msm_bench" + sfx in phases:
-        t0 = time.time()
-        info, _ = S.phase_msm_bench(inputs, smi, unsigned=not sfx)
-        line("msm_bench" + sfx, t0, **info)
-    del key, z, inputs
-    torch.cuda.empty_cache()
+        info, pk, vk, _ = S.phase_setup_full(curve, n_full, device, smi)
+        line("setup_full" + sfx, t0, **info)
+        if "prove_setup" + sfx in phases:
+            t0 = time.time()
+            line("prove_setup" + sfx, t0,
+                 **S.phase_prove_setup(pk, vk, curve, z, device, pooled, save=False))
+        del pk, vk
+        torch.cuda.empty_cache()
 if "bench_madd_parts" in phases:
     t0 = time.time()
     info, rows = S.phase_bench_madd_parts(smi, device, build["sass"])
@@ -112,7 +127,7 @@ def build_both(trees: list[str]) -> None:
 def summary(runs: list[list[dict]]) -> dict:
     """The numbers to compare, each a list over the four turns."""
     out: dict = {"kernel_ms": {}, "msm_adds_per_s": {}, "msm_combine_ms": {},
-                 "prove_stage_ms": {}, "k1_scan_ms": {}}
+                 "prove_stage_ms": {}, "k1_scan_ms": {}, "setup_stage_ms": {}}
 
     def put(table, name, turn, v):
         table.setdefault(name, [None] * len(runs))[turn] = v
@@ -125,7 +140,7 @@ def summary(runs: list[list[dict]]) -> dict:
                 for extra in ("transform_ms", "h_ms", "ntt_stage_ms"):  # K3's pass kernel
                     if extra in row:
                         put(out["kernel_ms"], f"{row['name']} {extra}", turn, row[extra])
-            if phase and phase.startswith("prove_full"):
+            if phase and phase.startswith(("prove_full", "prove_setup")):
                 for stage, ms in rec["stage_ms"].items():
                     if stage.startswith("msm") or stage == "h":
                         put(out["prove_stage_ms"], f"{phase} {stage}", turn, ms)
@@ -140,6 +155,9 @@ def summary(runs: list[list[dict]]) -> dict:
                 name = f"{d['curve']} c{d['window_bits']} signed={d['signed_digits']} affine={d['affine']}"
                 put(out["msm_adds_per_s"], name, turn, rec["msm_bench"]["value"])
                 put(out["msm_combine_ms"], name, turn, d["stage_ms"]["combine"])
+            if phase and phase.startswith("setup_full"):
+                for stage, ms in rec["stage_ms"].items():
+                    put(out["setup_stage_ms"], f"{phase} {stage}", turn, ms)
     return out
 
 

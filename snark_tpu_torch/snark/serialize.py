@@ -284,3 +284,47 @@ def deserialize_vk(data: bytes, curve: CurveParams, compress: bool = True):
 
 
 # ----- predicates ----------------------------------------------------------
+
+
+# ----- proving key ---------------------------------------------------------
+
+
+def serialize_pk_points(
+    vk, beta_g1, delta_g1, a_q, b_g1_q, b_g2_q, h_q, l_q,
+    compress: bool = True,
+) -> bytes:
+    """arkworks groth16 ProvingKey field order: vk ‖ beta_g1 ‖ delta_g1 ‖
+    a_query ‖ b_g1_query ‖ b_g2_query ‖ h_query ‖ l_query (each query a
+    length-prefixed Vec of affine points). Queries are host affine tuples
+    (None = identity)."""
+    curve = vk.curve
+    out = [serialize_vk(vk, compress)]
+    out.append(serialize_g1(curve, beta_g1, compress))
+    out.append(serialize_g1(curve, delta_g1, compress))
+    for q, ser in (
+        (a_q, serialize_g1),
+        (b_g1_q, serialize_g1),
+        (b_g2_q, serialize_g2),
+        (h_q, serialize_g1),
+        (l_q, serialize_g1),
+    ):
+        out.append(serialize_vec([ser(curve, pt, compress) for pt in q]))
+    return b"".join(out)
+
+
+def deserialize_pk_points(data: bytes, curve: CurveParams, compress: bool = True):
+    """-> (vk, beta_g1, delta_g1, [a_q, b_g1_q, b_g2_q, h_q, l_q])."""
+    vk = deserialize_vk(data, curve, compress)
+    off = len(serialize_vk(vk, compress))
+    beta_g1, off = deserialize_g1(curve, data, off, compress)
+    delta_g1, off = deserialize_g1(curve, data, off, compress)
+    queries = []
+    for kind in ("g1", "g1", "g2", "g1", "g1"):
+        n, off = read_len(data, off)
+        q = []
+        de = deserialize_g1 if kind == "g1" else deserialize_g2
+        for _ in range(n):
+            pt, off = de(curve, data, off, compress)
+            q.append(pt)
+        queries.append(q)
+    return vk, beta_g1, delta_g1, queries

@@ -575,3 +575,46 @@ def test_madd_parts_match_plain(cuda):
         sums = PlaneMsm(8, 254, "g1", part=part).window_sums(inp.table, inp.digits)
         plain = PlaneMsm(8, 254, "g1", part=part).window_sums(inp.table.cpu(), inp.digits.cpu())
         assert torch.equal(sums.cpu(), plain), part
+
+
+def test_fixed_base_walk_and_codec_match_plain(cuda):
+    """The setup's fixed-base walk (one K1 launch, unsigned payloads,
+    identity rows skipped) and affine codec (K7's batch inverse and
+    products) on the card against their plain versions on the CPU, in G1
+    and G2 on both curves, at 4096 scalars with 0, 1 and r − 1 among them,
+    and the legacy chain (K2 without a mask) at 64."""
+    from snark_tpu_torch.ops import affine_codec as AC
+    from snark_tpu_torch.ops.fixed_base import FixedBase
+
+    for curve in (BN254, BLS12_381):
+        fr = fields_of(curve)[0]
+        rng = random.Random(9)
+        vals = [0, 1, fr.p - 1] + [rng.randrange(fr.p) for _ in range(4093)]
+        std = fr.tensor(vals, cuda, mont=False)
+        for group in ("g1", "g2"):
+            fb, plain = FixedBase(curve, group, cuda), FixedBase(curve, group, "cpu")
+            _native.reset_launches()
+            P = fb.walk(std)
+            assert _native.LAUNCHES[_native.counter_name("bucket_madd_rows", curve.name, group)] == 1
+            P_cpu = plain.walk(std.cpu())
+            assert torch.equal(P.cpu(), P_cpu), (curve.name, group)
+            rows, query = AC.convert(P, group, curve)
+            rows_cpu, query_cpu = AC.convert(P_cpu, group, curve)
+            assert torch.equal(rows.cpu(), rows_cpu) and np.array_equal(query, query_cpu)
+            assert torch.equal(fb.walk_legacy(std[:64]).cpu(), plain.walk_legacy(std[:64].cpu()))
+
+
+def test_setup_on_card_equals_jax_keys(cuda, tmp_path):
+    """The setup on the card of each committed fixture circuit from
+    random.Random(0) gives every array of the JAX-written key."""
+    fixtures = (("torch_pk_bn254_mulchain1023.npz", BN254, 4, 1023),
+                ("torch_pk_bn254_mulchain12.npz", BN254, 7, 12),
+                ("torch_pk_bls12_381_mulchain12.npz", BLS12_381, 7, 12))
+    for name, curve, seed, n in fixtures:
+        pk, _ = Groth16(curve, device=cuda).circuit_specific_setup(
+            MulChainCircuit(seed=seed, n=n), random.Random(0))
+        path = str(tmp_path / name)
+        pk.save(path)
+        with np.load(os.path.join(VECTORS, name)) as want, np.load(path) as got:
+            for k in want.files:
+                assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), (name, k)
