@@ -12,7 +12,17 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    and K2 (`cuobjdump -sass`, where the toolkit has it), and for K1, K2
    and the called product (`mont_mul_call`) a summary: registers, spill
    stores, instructions, carry adds beside multiply-adds (`curve_kernels`).
-   setup: the synthetic key of prove_full and the MSM bench's inputs.
+1b. synthesis: the relations layer on the host. The LC engine's g++ build
+   (`relations/native.py`, into `_build/lc_engine-<hash>/`) and its
+   seconds; a symbolic-LC chain of SYNTH_CHAIN_LCS LCs finalized through
+   the native engine and through the Python pass, whose LC stores and
+   `to_coo_arrays` must be equal, with both times (and the engine's
+   finalize split into its inline and outline stages); the host time of
+   synthesizing MulChain(7, 2^20 − 64) over BLS12-381 Fr in setup mode
+   (finalize and the COO arrays included) and in prove mode.
+   setup: the synthetic key of prove_full (its matrices and full
+   assignment from the port's synthesis of the circuit) and the MSM
+   bench's inputs.
 2. kernels: K1-K4 against their plain PyTorch versions on the card, at the
    shapes of the 2^18 prove below, and K18 (`horner_combine`, the whole
    Horner combine in one launch), K5 (`point_double`), K2 without a mask
@@ -50,9 +60,12 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    the K1, K2 and K11 rows).
 3. prove_fixture: proves the committed MulChain(4, 1023) key
    (`tests/vectors/torch_pk_bn254_mulchain1023.npz`) at its committed
-   (r, s); the proof must equal the JAX package's committed proof bit for
+   (r, s) through `prove(pk, circuit, r, s)`, which synthesizes the
+   witness; the proof must equal the JAX package's committed proof bit for
    bit and pass the host pairing check.
-4. prove_full: MulChain(seed=4, n = 2^18 − 64) (domain 2^18, m = 524162)
+4. prove_full: MulChain(seed=4, n = 2^18 − 64) (domain 2^18, m = 524162),
+   proved through `prove(pk, circuit, r, s)` (its line adds the host
+   synthesis, `synthesize_ms`),
    against a synthetic key made here from a seed: the MulChain matrices
    and tables that tile a pool of 64 distinct points. Every MSM sum is
    checked exactly against the host pool oracle, h against
@@ -65,7 +78,8 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    proofs cannot pass the pairing check: the fixture is proved again with
    `affine_msm=True`, must equal the JAX proof and must verify.
 5b. setup_full: the Groth16 setup of MulChain(FULL_SEED, FULL_N) on the
-   card from random.Random(FULL_SEED), want_query=False: the device QAP
+   card, `circuit_specific_setup(circuit, random.Random(FULL_SEED))` with
+   want_query=False: the circuit's synthesis (`synthesize_ms`), the device QAP
    (K4), each query's fixed-base walk (one K1 launch) and affine codec (K7
    batch inverse and products). Its line: stage wall times (the generator
    tables on the host, the QAP, each query's walk and codec, the vk,
@@ -79,10 +93,10 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    identity row where bitrev(k) = n − 1; WALK_CHECK_LANES lanes of
    a_tbl's walk (live lanes, 64 identity lanes among them) through K1
    equal its plain version on the card.
-5c. prove_setup: the prove from that key at prove_full's (r, s) passes the
-   host pairing check; its stage times beside prove_full's (pooled
-   tables); the key saved to a temporary directory and loaded on the card
-   proves the same proof.
+5c. prove_setup: `prove(pk, circuit, random.Random(2024))` from that key
+   passes the host pairing check; its stage times beside prove_full's
+   (pooled tables); the key saved to a temporary directory and loaded on
+   the card proves the same proof from the same rng.
 6. msm_bench: `snark_tpu_torch.bench` on BN254 G1 at 2^20 points, signed
    c = 13, with the scan and with the batch-affine tree; G2 at 2^18 both
    ways; G1 unsigned c = 12 with the scan; every result equal to the pool
@@ -110,8 +124,14 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    checks; the affine tree must have engaged in all five MSMs and the proof
    must equal prove_full_bls's.
 10b. setup_full_bls, prove_setup_bls: the synthetic BLS12-381 key freed,
-   phases 5b and 5c for BLS12-381 MulChain(FULL_SEED, FULL_N_BLS), the
-   reference's configuration 3, with no save round trip.
+   the reference's configuration 3 as `scripts/run_configs.py` runs it:
+   MulChain(seed=7, n = 2^20 − 64, batch=True), `circuit_specific_setup`
+   from random.Random(0) with the default want_query=True (the five legacy
+   query arrays; their sampled rows must hold the tables' points, and the
+   line gives their bytes), a warm `prove` from random.Random(5), the
+   timed `prove` from random.Random(1), and `verify(vk, [7], proof)`; the
+   checks of 5b on the replayed toxic waste, and no save round trip. Both
+   lines carry `config: 3` and `synthesize_ms`.
 11. msm_bench_bls: `snark_tpu_torch.bench` on BLS12-381 G1 at 2^20 points
    and G2 at 2^18, signed c = 13, with the scan and with the batch-affine
    tree, every result equal to the pool oracle. Launch counts of this
@@ -214,6 +234,7 @@ SASS_CURVE_KERNELS = ("bucket_madd_rows", "masked_add", "mont_mul_call")
 SETUP_SAMPLES = 64  # rows of each table the setup phases check on the host
 WALK_CHECK_LANES = 4096  # lanes of a_tbl's walk held against K1's plain version (64 identity)
 SETUP_KERNELS = ("bucket_madd_rows", "field_ew", "affine_tree_mul")  # K1, K4, K7
+SYNTH_CHAIN_LCS = 1 << 16  # LCs of the synthesis phase's chain
 MADD_PARTS_CHECK = (12, 8)  # log n and c of bench_madd_parts' whole-pipeline check
 SCRIPT_BODY_LINE = {"nosub": 73, "halfmul": 88, "nodecode": 98}  # scripts/bench_madd_parts.py
 
@@ -257,11 +278,12 @@ def bound_ms(imads: float, nbytes: float) -> tuple[float, str]:
 
 
 class SyntheticKey:
-    """A proving key for MulChain(seed, n) over `curve` whose five tables
-    tile pools of 64 distinct points, and whose vk points come from fixed
-    scalars. It is not the output of a setup (its proofs do not verify); it
-    feeds the prover's device path at full width with an exact host
-    oracle."""
+    """A proving key for MulChain(FULL_SEED, n) over `curve` whose five
+    tables tile pools of 64 distinct points, and whose vk points come from
+    fixed scalars; its matrices and the full assignment `z` come from the
+    port's synthesis of the circuit. It is not the output of a setup (its
+    proofs do not verify); it feeds the prover's device path at full width
+    with an exact host oracle."""
 
     def __init__(self, n_constraints: int, seed: int, device, curve=None):
         import numpy as np
@@ -269,7 +291,12 @@ class SyntheticKey:
 
         from snark_tpu_torch.fields.limbs import fields_of
         from snark_tpu_torch.fields.params import BN254
-        from snark_tpu_torch.groth16 import ProvingKey, VerifyingKey
+        from snark_tpu_torch.groth16 import (
+            ProvingKey,
+            VerifyingKey,
+            synthesize_matrices,
+            synthesize_witness,
+        )
         from snark_tpu_torch.groth16.qap import PaddedCsr, domain_size_for
         from snark_tpu_torch.models import MulChainCircuit
         from snark_tpu_torch.ops.curve import pack_rows_u8
@@ -283,8 +310,12 @@ class SyntheticKey:
         g1, g2 = host_g1(curve), host_g2(curve)
         self.g1, self.g2 = g1, g2
         self.circuit = MulChainCircuit(seed=FULL_SEED, n=n_constraints)
-        ni = self.circuit.num_instance
-        m = self.circuit.num_variables
+        coo, values, nc, ni, m = synthesize_matrices(self.circuit, curve)
+        if any(not np.array_equal(indptr, np.arange(nc + 1)) for indptr, _, _ in coo):
+            raise AssertionError("MulChain's matrices hold more than one entry a row")
+        # the column of each row's one entry, in A, B and C
+        self.cols = [col for _, col, _ in coo]
+        self.z = synthesize_witness(self.circuit, curve)  # the full assignment
         nw = m - ni
         n = domain_size_for(n_constraints, ni)
 
@@ -310,14 +341,7 @@ class SyntheticKey:
             delta_g2=g2.scalar_mul(g2.generator, delta),
             gamma_abc_g1=[g1.scalar_mul(g1.generator, rng.randrange(1, r)) for _ in range(ni)],
         )
-        # the reference's CSR format: (rows, 1) columns, 16-bit-limb
-        # Montgomery coefficients at R = 2^256 (all 1 for MulChain)
-        one16 = np.array(
-            [(self.fr.to_mont(1) >> (16 * i)) & 0xFFFF for i in range(16)], np.uint32
-        )
-        coeffs = np.broadcast_to(one16, (n_constraints, 1, 16))
-        cols = self.circuit.csr_columns()
-        self.cols = cols
+        mats = [PaddedCsr.from_coo(c, values, self.fr, nc, device) for c in coo]
         self.pk = ProvingKey(
             vk=vk,
             beta_g1=g1.scalar_mul(g1.generator, beta),
@@ -329,9 +353,9 @@ class SyntheticKey:
             # no query point in a real key: the identity row
             h_tbl=table("h", n, identity_row=n - 1),
             l_tbl=table("l", nw),
-            mat_a=PaddedCsr.from_reference(cols[0], coeffs, device),
-            mat_b=PaddedCsr.from_reference(cols[1], coeffs, device),
-            mat_c=PaddedCsr.from_reference(cols[2], coeffs, device),
+            mat_a=mats[0],
+            mat_b=mats[1],
+            mat_c=mats[2],
             num_instance=ni,
             num_witness=nw,
             num_constraints=n_constraints,
@@ -361,9 +385,9 @@ class SyntheticKey:
         pk = self.pk
         n, nc, ni = pk.domain_size, pk.num_constraints, pk.num_instance
         evals = [
-            [z[c] for c in self.cols[0][:, 0]] + z[:ni] + [0] * (n - nc - ni),
-            [z[c] for c in self.cols[1][:, 0]] + [0] * (n - nc),
-            [z[c] for c in self.cols[2][:, 0]] + [0] * (n - nc),
+            [z[c] for c in self.cols[0]] + z[:ni] + [0] * (n - nc - ni),
+            [z[c] for c in self.cols[1]] + [0] * (n - nc),
+            [z[c] for c in self.cols[2]] + [0] * (n - nc),
         ]
         x = rng.randrange(p)
         omega = self.curve.fr.root_of_unity(n)
@@ -479,6 +503,82 @@ def phase_build() -> dict:
     sass = sass_mix(res.path, _native._nvcc())
     return {"nvcc_seconds": round(res.seconds, 3), "built": res.built, "ptxas": funcs,
             "sass": sass, "curve_kernels": curve_kernel_summary(funcs, sass)}
+
+
+def phase_synthesis() -> dict:
+    """The relations layer on the host: the LC engine's g++ build; the
+    symbolic-LC chain (SYNTH_CHAIN_LCS LCs, each 2·(the previous) +
+    (i + 1)·b, each in a constraint 1·LC = LC) finalized through the
+    native engine and through the Python pass, whose LC stores and
+    to_coo_arrays must be equal; the host time of synthesizing MulChain(7,
+    FULL_N_BLS) over BLS12-381 Fr in setup mode (with finalize and the COO
+    arrays) and in prove mode."""
+    import numpy as np
+
+    from snark_tpu_torch.fields.host import Fp
+    from snark_tpu_torch.fields.params import BLS12_381, BN254
+    from snark_tpu_torch.groth16 import synthesize_matrices, synthesize_witness
+    from snark_tpu_torch.models import MulChainCircuit
+    from snark_tpu_torch.relations import R1CS_PREDICATE_LABEL, native, new_ref
+    from snark_tpu_torch.relations import variable as V
+
+    engine = native.build()
+
+    def chain():
+        cs = new_ref(Fp(BN254.fr))
+        a, b = cs.new_input_variable(2), cs.new_witness_variable(3)
+        prev = cs.new_lc(cs.lc(a, b))
+        for i in range(SYNTH_CHAIN_LCS - 1):
+            prev = cs.new_lc(cs.lc_terms((2, prev), (i + 1, b)))
+            cs.enforce_r1cs_constraint(cs.lc(V.ONE), cs.lc(prev), cs.lc(prev))
+        return cs
+
+    def store(cs):
+        lm, values = cs.inner.lc_map, cs.inner.field_interner.values
+        return lm.offsets, lm.vars, [values[c] for c in lm.coeff_ids]
+
+    t = time.time()
+    by_engine = chain()
+    build_s = time.time() - t
+    terms = by_engine.inner.lc_map.total_lc_size()
+    if terms < 4096:
+        raise AssertionError(f"the chain's {terms} terms are below the engine's threshold")
+    by_python = chain()
+    t = time.perf_counter()
+    by_engine.finalize()
+    engine_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    by_python.inner.inline_all_lcs_python()
+    python_ms = (time.perf_counter() - t) * 1e3
+    if store(by_engine) != store(by_python):
+        raise AssertionError("the engine's inlined LCs differ from the Python pass's")
+    coo = [m.inner.to_coo_arrays(R1CS_PREDICATE_LABEL) for m in (by_engine, by_python)]
+    if not all(x.dtype == y.dtype and np.array_equal(x, y)
+               for a, b in zip(*coo) for x, y in zip(a, b)):
+        raise AssertionError("the engine's to_coo_arrays differ from the Python pass's")
+    if not by_engine.is_satisfied():
+        raise AssertionError("the finalized chain is not satisfied")
+
+    circuit = MulChainCircuit(seed=7, n=FULL_N_BLS, batch=True)
+    t = time.perf_counter()
+    _, _, nc, ni, m = synthesize_matrices(circuit, BLS12_381)
+    setup_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    z = synthesize_witness(circuit, BLS12_381)
+    prove_ms = (time.perf_counter() - t) * 1e3
+    if len(z) != m or (nc, ni) != (FULL_N_BLS, 2):
+        raise AssertionError(f"MulChain synthesized {nc} constraints, {ni} instances, {len(z)} values")
+    return {
+        "engine_build": {"built": engine.built, "seconds": round(engine.seconds, 3),
+                         "library": os.path.relpath(engine.path, HERE)},
+        "chain": {"lcs": SYNTH_CHAIN_LCS, "terms": terms, "constraints": by_engine.num_constraints(),
+                  "build_seconds": round(build_s, 3), "engine_ms": round(engine_ms, 3),
+                  "python_ms": round(python_ms, 3), "lc_store_equal": True, "coo_equal": True,
+                  "engine_finalize_ms": {k: round(v, 3)
+                                         for k, v in by_engine.inner.finalize_ms.items()}},
+        "mulchain_bls12_381": {"constraints": nc, "m": m, "setup_mode_ms": round(setup_ms, 3),
+                               "prove_mode_ms": round(prove_ms, 3)},
+    }
 
 
 def curve_kernel_summary(ptxas: dict, sass) -> dict:
@@ -1050,7 +1150,8 @@ def phase_kernels_msm(inputs: dict, device) -> tuple[list[dict], dict]:
 
 def phase_prove_fixture(device, affine_msm: bool = False, bls: bool = False) -> dict:
     """The committed fixture of BN254 (MulChain(4, 1023), m = 2048) or of
-    BLS12-381 (MulChain(7, 12), m = 26) at its committed (r, s)."""
+    BLS12-381 (MulChain(7, 12), m = 26), proved from the port's synthesis
+    of the circuit (`prove(pk, circuit, r, s)`) at its committed (r, s)."""
     from snark_tpu_torch.fields.params import BLS12_381, BN254
     from snark_tpu_torch.groth16 import Groth16, ProvingKey
     from snark_tpu_torch.models import MulChainCircuit
@@ -1064,21 +1165,23 @@ def phase_prove_fixture(device, affine_msm: bool = False, bls: bool = False) -> 
         want = json.load(f)
     pk = ProvingKey.load(pk_path, device=device)
     g16 = Groth16(curve, device=device, affine_msm=affine_msm)
-    z = circuit.assignment(curve.fr.modulus)
     t = time.time()
-    proof = g16.prove_from_assignment(pk, z, int(want["r"]), int(want["s"]))
+    proof = g16.prove(pk, circuit, r=int(want["r"]), s=int(want["s"]))
     prove_s = time.time() - t
     got = ser.serialize_proof(proof, curve).hex()
     if got != want["proof_bytes_hex"]:
         raise AssertionError(f"{curve.name} fixture proof differs from the JAX package's: {got}")
     if not g16.verify(pk.vk, want["public_input"], proof):
         raise AssertionError(f"{curve.name} fixture proof does not verify")
-    return {"m": len(z), "equal_to_jax_proof": True, "verifies": True,
-            "prove_seconds": round(prove_s, 3)}
+    return {"m": pk.num_instance + pk.num_witness, "equal_to_jax_proof": True, "verifies": True,
+            "prove_seconds": round(prove_s, 3),
+            "synthesize_ms": round(g16.last_run.stage_ms["synthesize"], 3)}
 
 
 def phase_prove_full(key: SyntheticKey, z: list[int], device, affine_msm: bool = False):
-    """-> (phase info, launch counts of the prove, the proof)."""
+    """Prove key.circuit through `prove(pk, circuit, r, s)`, which
+    synthesizes its witness; z, the full assignment, feeds the oracles.
+    -> (phase info, launch counts of the prove, the proof)."""
     import torch
 
     from snark_tpu_torch import _native
@@ -1092,7 +1195,7 @@ def phase_prove_full(key: SyntheticKey, z: list[int], device, affine_msm: bool =
     torch.cuda.reset_peak_memory_stats()
     _native.reset_launches()
     t = time.time()
-    proof = g16.prove_from_assignment(pk, z, r, s)
+    proof = g16.prove(pk, key.circuit, r=r, s=s)
     prove_s = time.time() - t
     launches = dict(_native.LAUNCHES)
     run = g16.last_run
@@ -1120,6 +1223,7 @@ def phase_prove_full(key: SyntheticKey, z: list[int], device, affine_msm: bool =
         "curve": key.curve.name, "constraints": pk.num_constraints,
         "m": ni + pk.num_witness, "domain": n, "table_bytes": key.table_bytes(),
         "prove_seconds": round(prove_s, 3),
+        "synthesize_ms": round(run.stage_ms["synthesize"], 3),
         "stage_ms": {k: round(v, 3) for k, v in run.stage_ms.items()},
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "msm_exact": True, "h_identity": True, "proof_equals_assembly": True,
@@ -1130,21 +1234,24 @@ def phase_prove_full(key: SyntheticKey, z: list[int], device, affine_msm: bool =
 
 
 class MulChainQap:
-    """The setup's scalars of MulChain(FULL_SEED, n) on the host, from the
-    toxic waste replayed from random.Random(FULL_SEED): u, v, w of a
-    column from the circuit's matrices and L_j(τ) = (Z(τ)/n)·ω^j/(τ − ω^j),
-    and the l, h and gamma_abc scalars from them."""
+    """The setup's scalars of a MulChain circuit on the host, from the
+    toxic waste replayed from random.Random(setup_seed): u, v, w of a
+    column from the synthesized matrices and
+    L_j(τ) = (Z(τ)/n)·ω^j/(τ − ω^j), and the l, h and gamma_abc scalars
+    from them."""
 
-    def __init__(self, circuit, curve, n: int):
+    def __init__(self, circuit, curve, n: int, setup_seed: int):
         from snark_tpu_torch.fields.host import Fp
+        from snark_tpu_torch.groth16 import synthesize_matrices
 
-        rng = random.Random(FULL_SEED)
+        rng = random.Random(setup_seed)
         self.alpha, self.beta, self.gamma, self.delta, self.tau = (
             Fp(curve.fr).rand(rng) for _ in range(5))
-        self.p, self.n, self.circuit = curve.fr.modulus, n, circuit
+        self.p, self.n = curve.fr.modulus, n
         self.omega = curve.fr.root_of_unity(n)
         self.z_tau = (pow(self.tau, n, self.p) - 1) % self.p
-        self.cols = circuit.csr_columns()
+        coo, _, self.nc, self.ni, _ = synthesize_matrices(circuit, curve)
+        self.cols = [col for _, col, _ in coo]  # one entry a row, coefficient 1
 
     def lagrange(self, j: int) -> int:
         p, w = self.p, pow(self.omega, j, self.p)
@@ -1155,9 +1262,9 @@ class MulChainQap:
 
         out = []
         for k, c in enumerate(self.cols):
-            s = sum(self.lagrange(int(j)) for j in np.nonzero(c[:, 0] == i)[0])
-            if k == 0 and i < self.circuit.num_instance:  # input-consistency row
-                s += self.lagrange(self.circuit.num_constraints + i)
+            s = sum(self.lagrange(int(j)) for j in np.nonzero(c == i)[0])
+            if k == 0 and i < self.ni:  # input-consistency row
+                s += self.lagrange(self.nc + i)
             out.append(s % self.p)
         return out
 
@@ -1170,46 +1277,69 @@ class MulChainQap:
         return pow(self.tau, j, p) * self.z_tau % p * pow(self.delta, -1, p) % p
 
 
+def setup_config(n_constraints: int, config3: bool) -> dict:
+    """The circuit and the setup of a setup phase: the reference's
+    configuration 3 (`scripts/run_configs.py` config3: MulChain(7, n,
+    batch=True), the setup from random.Random(0) with the default
+    want_query=True, a warm prove from random.Random(5), the timed prove
+    from random.Random(1), verify with [7]), or MulChain(FULL_SEED, n) set
+    up from random.Random(FULL_SEED) with want_query=False and proved from
+    random.Random(2024)."""
+    from snark_tpu_torch.models import MulChainCircuit
+
+    if config3:
+        return {"circuit": MulChainCircuit(seed=7, n=n_constraints, batch=True), "setup_seed": 0,
+                "want_query": True, "warm_seed": 5, "prove_seed": 1, "public": [7], "config": 3}
+    return {"circuit": MulChainCircuit(seed=FULL_SEED, n=n_constraints), "setup_seed": FULL_SEED,
+            "want_query": False, "warm_seed": None, "prove_seed": 2024, "public": [FULL_SEED],
+            "config": None}
+
+
 def samples(size: int, rng: random.Random) -> list[int]:
     """SETUP_SAMPLES indices below size: the ends and random ones."""
     return sorted({0, 1, size - 1} | {rng.randrange(size) for _ in range(SETUP_SAMPLES - 3)})
 
 
-def phase_setup_full(curve, n_constraints: int, device, smi: str):
-    """The setup of MulChain(FULL_SEED, n_constraints) from
-    random.Random(FULL_SEED), want_query=False, on the card. Checks: for
+def phase_setup_full(curve, n_constraints: int, device, smi: str, config3: bool = False):
+    """The setup on the card of the circuit of `setup_config`
+    (`circuit_specific_setup(circuit, rng)`, which synthesizes it): the
+    reference's configuration 3 with `config3`, else MulChain(FULL_SEED,
+    n_constraints) from random.Random(FULL_SEED), want_query=False. Checks: for
     SETUP_SAMPLES rows of each table, the scalar read back from the device
     QAP equals the host formula on the replayed toxic waste and the decoded
     row equals the host scalar multiplication of the generator by it;
     gamma_abc likewise; a_tbl's identity rows lie exactly where u = 0, and
     h_tbl's one identity row where bitrev(k) = n − 1; WALK_CHECK_LANES
     lanes of a_tbl's walk (live ones, 64 identity lanes among them)
-    through K1 equal its plain version on the card.
+    through K1 equal its plain version on the card; with want_query, the
+    sampled rows of each legacy query array hold the table rows' points.
     -> (phase info, key, vk, the setup's launch counts)."""
     import torch
 
     from snark_tpu_torch import _native
     from snark_tpu_torch.groth16 import Groth16
-    from snark_tpu_torch.models import MulChainCircuit
     from snark_tpu_torch.ops import curve as C
+    from snark_tpu_torch.ops.affine_codec import query_to_points
     from snark_tpu_torch.ops.fixed_base import FixedBase
     from snark_tpu_torch.ops.ntt import bit_reverse_indices
 
-    circuit = MulChainCircuit(seed=FULL_SEED, n=n_constraints)
+    cfg = setup_config(n_constraints, config3)
+    circuit = cfg["circuit"]
     g16 = Groth16(curve, device=device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()  # what the smoke holds already
     _native.reset_launches()
     t = time.time()
-    pk, vk = g16.circuit_specific_setup(circuit, random.Random(FULL_SEED), want_query=False)
+    pk, vk = g16.circuit_specific_setup(circuit, random.Random(cfg["setup_seed"]),
+                                        want_query=cfg["want_query"])
     setup_s = time.time() - t
     launches = dict(_native.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     run, fr = g16.last_setup, g16.fr
     n, ni = pk.domain_size, pk.num_instance
     m = ni + pk.num_witness
-    host = MulChainQap(circuit, curve, n)
+    host = MulChainQap(circuit, curve, n, cfg["setup_seed"])
     p = host.p
     delta_inv, gamma_inv = pow(host.delta, -1, p), pow(host.gamma, -1, p)
     rev = bit_reverse_indices(n)
@@ -1246,6 +1376,16 @@ def phase_setup_full(curve, n_constraints: int, device, smi: str):
     h_ident = torch.nonzero(pk.h_tbl[:, -1] == 0).flatten().tolist()
     if h_ident != [int(k) for k in range(n) if rev[k] == n - 1]:
         raise AssertionError(f"h_tbl's identity rows are {h_ident}")
+    queries = sorted(f"{t}_query" for t in ("a", "b_g1", "b_g2", "h", "l"))
+    if cfg["want_query"] and sorted(pk.queries) != queries:
+        raise AssertionError(f"the key holds the query arrays {sorted(pk.queries)}")
+    for name, q in pk.queries.items():  # query j is table row j; h's is row rev[j]
+        stem, group = name[: -len("_query")], "g2" if name == "b_g2_query" else "g1"
+        js = samples(q.shape[0], srng)
+        ks = [int(rev[j]) for j in js] if stem == "h" else js
+        rows = getattr(pk, f"{stem}_tbl")[torch.as_tensor(ks, device=device)].cpu().numpy()
+        if query_to_points(q[js], group, curve) != C.rows_to_points(rows, group, curve):
+            raise AssertionError(f"{name}'s sampled points differ from {stem}_tbl's rows")
 
     # live lanes (u ≠ 0: ONE, the seed and the x columns) with 64 identity
     # lanes (the m columns) scattered among them
@@ -1268,9 +1408,14 @@ def phase_setup_full(curve, n_constraints: int, device, smi: str):
             "a_walk_ms": cuda_ms(lambda: fb.walk(run.scalars["a"]))}
     tables = ("a_tbl", "b_g1_tbl", "b_g2_tbl", "h_tbl", "l_tbl")
     info = {
-        "curve": curve.name, "constraints": n_constraints, "m": m, "domain": n,
+        "curve": curve.name, "config": cfg["config"], "circuit_seed": circuit.seed,
+        "setup_rng": f"random.Random({cfg['setup_seed']})", "want_query": cfg["want_query"],
+        "constraints": n_constraints, "m": m, "domain": n,
         "nvidia_smi": smi, "setup_seconds": round(setup_s, 3),
+        "synthesize_ms": round(run.stage_ms["synthesize"], 3),
         "stage_ms": {k: round(v, 3) for k, v in run.stage_ms.items()},
+        "query_bytes": sum(q.nbytes for q in pk.queries.values()),
+        "query_arrays": {k: list(q.shape) for k, q in pk.queries.items()},
         "max_memory_allocated": peak, "held_before": held, "setup_peak_bytes": peak - held,
         "table_bytes": sum(getattr(pk, t).numel() for t in tables),
         "setup_launches": {k: v for k, v in launches.items() if v},
@@ -1280,41 +1425,52 @@ def phase_setup_full(curve, n_constraints: int, device, smi: str):
     return info, pk, vk, launches
 
 
-def phase_prove_setup(pk, vk, curve, z: list[int], device, pooled: dict, save: bool) -> dict:
-    """Prove MulChain from the setup's key at prove_full's (r, s); the host
-    pairing check must pass. Its stage times beside `pooled`, those of the
-    same prove on the synthetic key of pooled tables. With `save`, the key
-    goes to a temporary directory (`ProvingKey.save`), is read back on the
-    card (`ProvingKey.load`) and must prove the same proof."""
+def phase_prove_setup(pk, vk, curve, device, pooled: dict, save: bool,
+                      config3: bool = False) -> dict:
+    """Prove the setup's circuit from its key through `prove(pk, circuit,
+    rng)` as `setup_config` says (configuration 3: a warm prove from
+    random.Random(5), then the timed prove from random.Random(1)); the host
+    pairing check must pass with the circuit's public input. Its stage
+    times beside `pooled`, those of prove_full on the synthetic key of
+    pooled tables. With `save`, the key goes to a temporary directory
+    (`ProvingKey.save`), is read back on the card (`ProvingKey.load`) and
+    must prove the same proof from the same rng."""
     import tempfile
 
     import torch
 
     from snark_tpu_torch.groth16 import Groth16, ProvingKey
 
-    p = curve.fr.modulus
-    rng = random.Random(2024)
-    r, s = rng.randrange(p), rng.randrange(p)
+    cfg = setup_config(pk.num_constraints, config3)
+    circuit = cfg["circuit"]
     g16 = Groth16(curve, device=device)
     g16.ntt_plan(pk.domain_size)
+    info = {"curve": curve.name, "config": cfg["config"]}
+    if cfg["warm_seed"] is not None:
+        t = time.time()
+        g16.prove(pk, circuit, random.Random(cfg["warm_seed"]))
+        info["warm_prove_seconds"] = round(time.time() - t, 3)
+        info["warm_stage_ms"] = {k: round(v, 3) for k, v in g16.last_run.stage_ms.items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()  # the key, and what the smoke holds already
     t = time.time()
-    proof = g16.prove_from_assignment(pk, z, r, s)
+    proof = g16.prove(pk, circuit, random.Random(cfg["prove_seed"]))
     prove_s = time.time() - t
     stages = g16.last_run.stage_ms
     t = time.time()
-    if not g16.verify(vk, [FULL_SEED], proof):
+    if not g16.verify(vk, cfg["public"], proof):
         raise AssertionError(f"the {curve.name} proof from the setup's key does not verify")
-    info = {
-        "curve": curve.name, "prove_seconds": round(prove_s, 3), "verifies": True,
+    info.update({
+        "prove_rng": f"random.Random({cfg['prove_seed']})", "public_input": cfg["public"],
+        "prove_seconds": round(prove_s, 3), "verifies": True,
         "verify_seconds": round(time.time() - t, 3),
+        "synthesize_ms": round(stages["synthesize"], 3),
         "stage_ms": {k: round(v, 3) for k, v in stages.items()},
         "pooled_stage_ms": pooled,
         "max_memory_allocated": torch.cuda.max_memory_allocated(), "held_before": held,
         "prove_peak_bytes": torch.cuda.max_memory_allocated() - held,
-    }
+    })
     if save:
         with tempfile.TemporaryDirectory() as d:
             path = os.path.join(d, "pk.npz")
@@ -1324,7 +1480,7 @@ def phase_prove_setup(pk, vk, curve, z: list[int], device, pooled: dict, save: b
             t = time.time()
             loaded = ProvingKey.load(path, device=device)
             load_s = time.time() - t
-            if g16.prove_from_assignment(loaded, z, r, s) != proof:
+            if g16.prove(loaded, circuit, random.Random(cfg["prove_seed"])) != proof:
                 raise AssertionError("the reloaded key proves another proof")
         info["save_round_trip"] = {"equal_proof": True, "file_bytes": size,
                                    "save_seconds": round(save_s, 3),
@@ -1644,12 +1800,15 @@ def main() -> int:
     build = phase_build()
     phase_line("build", t0, **build)
 
+    t0 = time.time()
+    phase_line("synthesis", t0, **phase_synthesis())
+
     from snark_tpu_torch import bench as B
     from snark_tpu_torch.fields.params import BLS12_381
 
     t0 = time.time()
     key = SyntheticKey(FULL_N, seed=1, device=device)
-    z = key.circuit.assignment(key.curve.fr.modulus)
+    z = key.z
     z_std = key.fr.tensor(z, device, mont=False)
     inputs = {g: B.make_inputs(BENCH_LOG_N[g], signed=True, c=BENCH_C, group=g, device=device)
               for g in ("g1", "g2")}
@@ -1680,7 +1839,7 @@ def main() -> int:
     phase_line("setup_full", t0, **info_s)
     t0 = time.time()
     phase_line("prove_setup", t0, **phase_prove_setup(
-        pk_s, vk_s, key.curve, z, device, info["stage_ms"], save=True))
+        pk_s, vk_s, key.curve, device, info["stage_ms"], save=True))
     del pk_s, vk_s
     torch.cuda.empty_cache()
 
@@ -1694,7 +1853,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.time()
     key_bls = SyntheticKey(FULL_N_BLS, seed=1, device=device, curve=BLS12_381)
-    z_bls = key_bls.circuit.assignment(BLS12_381.fr.modulus)
+    z_bls = key_bls.z
     z_std_bls = key_bls.fr.tensor(z_bls, device, mont=False)
     inputs_bls = {g: B.make_inputs(BENCH_LOG_N[g], signed=True, c=BENCH_C, group=g,
                                    device=device, curve=BLS12_381) for g in ("g1", "g2")}
@@ -1728,11 +1887,11 @@ def main() -> int:
 
     t0 = time.time()
     info_sb, pk_sb, vk_sb, setup_launches_bls = phase_setup_full(BLS12_381, FULL_N_BLS, device,
-                                                                 smi)
+                                                                 smi, config3=True)
     phase_line("setup_full_bls", t0, **info_sb)
     t0 = time.time()
     phase_line("prove_setup_bls", t0, **phase_prove_setup(
-        pk_sb, vk_sb, BLS12_381, z_bls, device, info_bls["stage_ms"], save=False))
+        pk_sb, vk_sb, BLS12_381, device, info_bls["stage_ms"], save=False, config3=True))
     del pk_sb, vk_sb, z_bls
     torch.cuda.empty_cache()
 

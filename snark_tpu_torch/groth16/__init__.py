@@ -4,6 +4,9 @@ from .groth16 import (
     ProvingKey,
     VerifyingKey,
     assemble_proof,
+    synthesize_matrices,
+    synthesize_witness,
 )
 
-__all__ = ["Groth16", "Proof", "ProvingKey", "VerifyingKey", "assemble_proof"]
+__all__ = ["Groth16", "Proof", "ProvingKey", "VerifyingKey", "assemble_proof",
+           "synthesize_matrices", "synthesize_witness"]

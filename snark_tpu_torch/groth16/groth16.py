@@ -5,12 +5,13 @@ Counterpart of the JAX package's `groth16/groth16.py`: `ProvingKey.save`
 and `ProvingKey.load` write and read its npz files, `pk_to_bytes` and
 `pk_from_bytes` its arkworks key bytes, `circuit_specific_setup` is its
 setup (the device QAP on K4, the fixed-base walk on K1 and the affine
-codec on K7; the same key from the same rng), and
-`Groth16.prove_from_assignment` is `_prove_from_assignment` on its plane
-branch. The reference takes that branch from m = 2048 variables and a
-legacy XLA path below; the port runs the plane path at every size, and the
-proof is the same, since the five MSM sums are group elements whatever
-path computes them:
+codec on K7; the same key from the same rng), `Groth16.prove` is its
+`prove` (the witness synthesized on the host by the port's relations
+layer), and `Groth16.prove_from_assignment` is `_prove_from_assignment`
+on its plane branch. The reference takes that branch from m = 2048
+variables and a legacy XLA path below; the port runs the plane path at
+every size, and the proof is the same, since the five MSM sums are group
+elements whatever path computes them:
 
 1. witness upload, Montgomery conversion (K4), three padded-CSR matvecs;
 2. evaluation padding (instance rows on the A side, zeros);
@@ -50,6 +51,7 @@ from ..ops.fixed_base import FixedBase
 from ..ops.msm import pick_window_plane_signed, signed_digits
 from ..ops.msm_plane import PlaneMsm
 from ..ops.ntt import NttPlan, bit_reverse_indices, from_mont, to_mont
+from ..relations import R1CS_PREDICATE_LABEL, OptimizationGoal, SynthesisMode, new_ref
 from .pairing import get_pairing
 from .qap import PaddedCsr, domain_size_for, matvec
 from .qap_device import combine_uvw_device, evaluate_uvw_device, powers_device
@@ -244,6 +246,31 @@ def _stage_clock(device: torch.device, stage_ms: dict):
     return tick
 
 
+def synthesize_matrices(circuit, curve: CurveParams):
+    """Setup-mode synthesis of a `ConstraintSynthesizer` over the curve's
+    scalar field, as the reference's setup runs it
+    (OptimizationGoal.Constraints, then finalize) -> (the R1CS matrices as
+    `to_coo_arrays` gives them, the interner's values, the number of
+    constraints, of instance variables and of variables)."""
+    cs = new_ref(Fp(curve.fr))
+    cs.set_optimization_goal(OptimizationGoal.Constraints)
+    cs.set_mode(SynthesisMode.setup())
+    circuit.generate_constraints(cs)
+    cs.finalize()
+    inner = cs.inner
+    return (inner.to_coo_arrays(R1CS_PREDICATE_LABEL), list(inner.field_interner.values),
+            inner.num_constraints(), inner.num_instance_variables, inner.num_variables())
+
+
+def synthesize_witness(circuit, curve: CurveParams) -> list[int]:
+    """Prove-mode synthesis, as the reference's prove runs it (no matrices,
+    no LC assignments) -> the full assignment z (ONE, instance, witness)."""
+    cs = new_ref(Fp(curve.fr))
+    cs.set_mode(SynthesisMode.prove(construct_matrices=False, generate_lc_assignments=False))
+    circuit.generate_constraints(cs)
+    return cs.full_assignment()
+
+
 def assemble_proof(g16, pk, A_sum, B_sum, B1_sum, L_sum, H_sum, r, s) -> Proof:
     """Host tail of the prover: fold the five MSM results into (A, B, C)."""
     g1, g2 = g16.hg1, g16.hg2
@@ -262,7 +289,8 @@ def assemble_proof(g16, pk, A_sum, B_sum, B1_sum, L_sum, H_sum, r, s) -> Proof:
 @dataclass
 class ProveRun:
     """What the last prove left behind for inspection: stage wall times
-    (milliseconds, each ending in a device synchronise), the five MSM
+    (milliseconds, each ending in a device synchronise; `prove` adds the
+    host synthesis of the witness as "synthesize"), the five MSM
     sums, h (canonical standard form, bit-reversed order) and, per MSM,
     whether the batch-affine tree accumulated its buckets."""
 
@@ -371,33 +399,61 @@ class Groth16:
         self.last_run = ProveRun(stage_ms, sums, h_std, affine)
         return proof
 
+    def prove(self, pk: ProvingKey, circuit, rng: random.Random | None = None,
+              r: int | None = None, s: int | None = None,
+              deterministic: bool = False) -> Proof:
+        """Synthesize the witness of a `ConstraintSynthesizer` and prove,
+        as the reference's `prove`: r, then s, drawn from rng where they
+        are not given. Without an rng and without (r, s) the proof would
+        have no zero knowledge (r = s = 0), so that raises unless the
+        caller passes deterministic=True. Synthesis runs with
+        construct_matrices=False: the key already holds the matrices."""
+        if rng is None and r is None and s is None and not deterministic:
+            raise ValueError(
+                "prove() without an rng (or explicit r/s) produces a proof "
+                "with ZERO zero-knowledge; pass rng=secure_rng(), explicit "
+                "r/s, or deterministic=True to opt in"
+            )
+        host_fr = Fp(self.curve.fr)
+        if r is None:
+            r = host_fr.rand(rng) if rng is not None else 0
+        if s is None:
+            s = host_fr.rand(rng) if rng is not None else 0
+        t0 = time.perf_counter()
+        z = synthesize_witness(circuit, self.curve)
+        synthesize_ms = (time.perf_counter() - t0) * 1e3
+        proof = self.prove_from_assignment(pk, z, r, s)
+        self.last_run.stage_ms = {"synthesize": synthesize_ms, **self.last_run.stage_ms}
+        return proof
+
     # ----- setup ---------------------------------------------------------------
     def circuit_specific_setup(self, circuit, rng: random.Random, want_query: bool = True):
-        """-> (ProvingKey, VerifyingKey) for a circuit that gives its
-        matrices (`coo_arrays`; MulChain so far), the reference's
-        `circuit_specific_setup` with its key layout: the toxic waste α, β,
-        γ, δ, τ drawn in that order from rng as the reference draws them;
-        u, v, w at τ by the device QAP (K4); the five query vectors
-        through the fixed-base walk (K1) and the affine codec (K7):
+        """-> (ProvingKey, VerifyingKey) for any `ConstraintSynthesizer`,
+        the reference's `circuit_specific_setup` with its key layout: the
+        circuit synthesized in setup mode (`synthesize_matrices`); the
+        toxic waste α, β, γ, δ, τ drawn in that order from rng as the
+        reference draws them; u, v, w at τ by the device QAP (K4); the
+        five query vectors through the fixed-base walk (K1) and the affine
+        codec (K7):
         a_tbl from u, b_g1_tbl and b_g2_tbl from v, l_tbl from
         (βu + αv + w)/δ over the witness columns, h_tbl from τ^j·Z(τ)/δ
         for j < n − 1 in bit-reversed order (row k holds coefficient
         bitrev(k), the identity row where bitrev(k) = n − 1);
         gamma_abc_g1 from (βu + αv + w)/γ over the instance columns, and
         the vk, beta_g1, delta_g1 by host scalar multiplications. The
-        matrices come from the circuit's COO arrays. want_query=False is
+        matrices come from the synthesis's COO arrays. want_query=False is
         the reference's SNARK_TPU_SETUP_QUERY=0: the vectors of 2048 or
         more points then leave out their legacy query arrays."""
         fr, dev = self.fr, self.device
         p = self.curve.fr.modulus
         stage_ms = {}
         tick = _stage_clock(dev, stage_ms)
-        nc, ni, m = circuit.num_constraints, circuit.num_instance, circuit.num_variables
+        coo, values, nc, ni, m = synthesize_matrices(circuit, self.curve)
+        tick("synthesize")
         n = domain_size_for(nc, ni)
         host_fr = Fp(self.curve.fr)
         alpha, beta, gamma, delta, tau = (host_fr.rand(rng) for _ in range(5))
         gamma_inv, delta_inv = pow(gamma, -1, p), pow(delta, -1, p)
-        coo, values = circuit.coo_arrays(p)
         fixed = {g: FixedBase(self.curve, g, dev) for g in ("g1", "g2")}
         for fb in fixed.values():
             fb.table  # noqa: B018  (built on the host once per curve and group)
@@ -484,13 +540,14 @@ class Groth16:
 
     def pk_from_bytes(self, data: bytes, circuit, compress: bool = True) -> ProvingKey:
         """A ProvingKey on this prover's device from arkworks bytes. The
-        bytes carry the points alone; the matrices come from the circuit
-        (`coo_arrays`), and the queries are held as the legacy affine
-        arrays (Z = 1), as the reference rebuilds them."""
+        bytes carry the points alone; the matrices come from the circuit,
+        synthesized in setup mode as the setup does, and the queries are
+        held as the legacy affine arrays (Z = 1), as the reference rebuilds
+        them."""
         from ..snark import serialize as ser
 
         vk, beta_g1, delta_g1, pts = ser.deserialize_pk_points(data, self.curve, compress)
-        nc, ni, m = circuit.num_constraints, circuit.num_instance, circuit.num_variables
+        coo, values, nc, ni, m = synthesize_matrices(circuit, self.curve)
         n = domain_size_for(nc, ni)
         if len(pts[3]) != n - 1 or len(pts[0]) != m:
             raise ValueError(f"the bytes hold {len(pts[0])} and {len(pts[3])} points, the"
@@ -502,7 +559,6 @@ class Groth16:
             rows = [q[j] if j < n - 1 else None for j in rev] if stem == "h" else q
             tables[f"{stem}_tbl"] = torch.as_tensor(pack_rows_u8(rows, group, self.curve),
                                                     device=self.device)
-        coo, values = circuit.coo_arrays(self.curve.fr.modulus)
         mat_a, mat_b, mat_c = (PaddedCsr.from_coo(c, values, self.fr, nc, self.device)
                                for c in coo)
         return ProvingKey(

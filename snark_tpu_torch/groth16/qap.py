@@ -45,7 +45,7 @@ class PaddedCsr:
 
     @staticmethod
     def from_coo(coo, values: list[int], field: Field, num_rows: int, device) -> "PaddedCsr":
-        """From one matrix of a circuit's `coo_arrays` (indptr, col, cid),
+        """From one matrix of `ConstraintSystem.to_coo_arrays` (indptr, col, cid),
         vectorised: row i's entries fill its first slots in order, absent
         slots hold (column 0, coefficient 0), and coefficient id
         len(values) is the literal zero. The width is the longest row."""

@@ -36,7 +36,13 @@ PHASES = ("kernels", "prove_full", "setup_full", "prove_setup", "msm_bench", "ke
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # Run in each tree with that tree's chip_smoke.py: the phase functions and
-# their arguments are those both trees have.
+# their arguments are those both trees have. A tree from before the
+# relations layer, whose MulChainCircuit writes its assignment by hand
+# (`MulChainCircuit.assignment`), proves from that assignment; a later tree
+# synthesizes the witness. The setups are MulChain(FULL_SEED) from
+# random.Random(FULL_SEED) in either tree (not configuration 3). The
+# hand-written branch goes once no tree that is still compared lacks
+# synthesis.
 RUNNER = r"""
 import json, sys, time
 sys.path.insert(0, ".")
@@ -58,8 +64,14 @@ def line(name, t0, **info):
 t0 = time.time()
 build = S.phase_build()
 line("build", t0, nvcc_seconds=build["nvcc_seconds"], nvidia_smi=smi)
+by_hand = hasattr(MulChainCircuit, "assignment")
 for curve, n_full, sfx in ((BN254, S.FULL_N, ""), (BLS12_381, S.FULL_N_BLS, "_bls")):
-    z = MulChainCircuit(seed=S.FULL_SEED, n=n_full).assignment(curve.fr.modulus)
+    circuit = MulChainCircuit(seed=S.FULL_SEED, n=n_full)
+    if by_hand:
+        z = circuit.assignment(curve.fr.modulus)
+    else:
+        from snark_tpu_torch.groth16 import synthesize_witness
+        z = synthesize_witness(circuit, curve)
     pooled = {}
     if phases & {"kernels" + sfx, "prove_full" + sfx, "msm_bench" + sfx}:
         key = S.SyntheticKey(n_full, seed=1, device=device, curve=curve)
@@ -89,8 +101,8 @@ for curve, n_full, sfx in ((BN254, S.FULL_N, ""), (BLS12_381, S.FULL_N_BLS, "_bl
         line("setup_full" + sfx, t0, **info)
         if "prove_setup" + sfx in phases:
             t0 = time.time()
-            line("prove_setup" + sfx, t0,
-                 **S.phase_prove_setup(pk, vk, curve, z, device, pooled, save=False))
+            args = (pk, vk, curve, z, device) if by_hand else (pk, vk, curve, device)
+            line("prove_setup" + sfx, t0, **S.phase_prove_setup(*args, pooled, save=False))
         del pk, vk
         torch.cuda.empty_cache()
 if "bench_madd_parts" in phases:

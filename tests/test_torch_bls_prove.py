@@ -84,8 +84,9 @@ def _torch_threads():
 
 @pytest.mark.parametrize("name", list(CURVES))
 def test_prove_small_fixture_cpu(name):
-    """m = 26: the port's plane path proves the JAX fixture to the
-    committed JAX proof, bit for bit, and the proof verifies."""
+    """m = 26: the port's plane path proves the JAX fixture, from the
+    port's synthesis of the circuit, to the committed JAX proof, bit for
+    bit, and the proof verifies."""
     curve = CURVES[name]
     pk_path, proof_path = fixture_paths(name)
     with open(proof_path) as f:
@@ -93,8 +94,7 @@ def test_prove_small_fixture_cpu(name):
     pk = TorchProvingKey.load(pk_path, device="cpu")
     assert pk.num_instance + pk.num_witness == 26 and pk.domain_size == 16
     g16 = TorchGroth16(curve, device="cpu")
-    z = TorchMulChain(seed=SEED, n=N).assignment(curve.fr.modulus)
-    proof = g16.prove_from_assignment(pk, z, int(want["r"]), int(want["s"]))
+    proof = g16.prove(pk, TorchMulChain(seed=SEED, n=N), r=int(want["r"]), s=int(want["s"]))
     assert tser.serialize_proof(proof, curve).hex() == want["proof_bytes_hex"]
     assert g16.verify(pk.vk, want["public_input"], proof)
     assert not g16.verify(pk.vk, [SEED + 1], proof)
@@ -130,8 +130,7 @@ def test_bls_affine_msm_refused():
         want = json.load(f)
     pk = TorchProvingKey.load(pk_path, device="cpu")
     g16 = TorchGroth16(BLS12_381, device="cpu", affine_msm=True)
-    z = TorchMulChain(seed=SEED, n=N).assignment(BLS12_381.fr.modulus)
-    proof = g16.prove_from_assignment(pk, z, int(want["r"]), int(want["s"]))
+    proof = g16.prove(pk, TorchMulChain(seed=SEED, n=N), r=int(want["r"]), s=int(want["s"]))
     assert tser.serialize_proof(proof, BLS12_381).hex() == want["proof_bytes_hex"]
     assert g16.verify(pk.vk, want["public_input"], proof)
     assert g16.last_run.affine == dict.fromkeys(("A", "B", "B1", "L", "H"), False)

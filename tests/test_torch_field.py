@@ -203,13 +203,19 @@ def _port_sources():
 def test_port_imports_no_jax():
     """No module of the port, and not chip_smoke.py, imports jax or the
     JAX package; the walk reaches every module, the field layer, K9-K17,
-    bench_field, bench_vpu_peak, bench_reduce_parts and bench_bisect_mul
-    among them."""
+    bench_field, bench_vpu_peak, bench_reduce_parts, bench_bisect_mul, the
+    relations layer, the circuits and the utilities among them."""
     walked = {os.path.relpath(path, ROOT) for path in _port_sources()}
+    relations = ("__init__", "assignment", "constraint_system", "constraint_system_ref",
+                 "error", "field_interner", "gadgets", "instance_outliner", "lc_map",
+                 "linear_combination", "matrix", "native", "predicate", "sr1cs", "trace",
+                 "variable")
     for mod in ("fields/device.py", "fields/device_f32.py", "ops/mont16.py", "ops/curve.py",
                 "bench_field.py", "ops/plane_field_v3.py", "ops/vpu_peak.py",
                 "bench_vpu_peak.py", "ops/mul_parts.py", "bench_reduce_parts.py",
-                "bench_bisect_mul.py"):
+                "bench_bisect_mul.py", *(f"relations/{m}.py" for m in relations),
+                "models/__init__.py", "models/circuits.py", "utils/__init__.py",
+                "utils/rng.py", "utils/timing.py"):
         assert os.path.join("snark_tpu_torch", mod) in walked, mod
     bad = []
     for path in _port_sources():

@@ -271,10 +271,23 @@ def test_prove_fixture(cuda):
         want = json.load(f)
     pk = ProvingKey.load(os.path.join(VECTORS, "torch_pk_bn254_mulchain1023.npz"), device=cuda)
     g16 = Groth16(device=cuda)
-    z = MulChainCircuit(seed=4, n=1023).assignment(R)
-    proof = g16.prove_from_assignment(pk, z, int(want["r"]), int(want["s"]))
+    proof = g16.prove(pk, MulChainCircuit(seed=4, n=1023), r=int(want["r"]), s=int(want["s"]))
     assert ser.serialize_proof(proof, BN254).hex() == want["proof_bytes_hex"]
     assert g16.verify(pk.vk, want["public_input"], proof)
+
+
+def test_prove_synthesized_equals_cpu(cuda):
+    """`prove(pk, circuit, rng)` of the synthesized fixture circuit on the
+    card gives the CPU port's proof from the same rng, and it verifies."""
+    path = os.path.join(VECTORS, "torch_pk_bn254_mulchain1023.npz")
+    circuit = MulChainCircuit(seed=4, n=1023)
+    proofs = []
+    for dev in (cuda, "cpu"):
+        g16 = Groth16(device=dev)
+        proofs.append(g16.prove(ProvingKey.load(path, device=dev), circuit, random.Random(5)))
+        assert "synthesize" in g16.last_run.stage_ms
+    assert proofs[0] == proofs[1]
+    assert g16.verify(ProvingKey.load(path, device="cpu").vk, [4], proofs[0])
 
 
 # ---------------------------------------------------------------------------
@@ -384,9 +397,8 @@ def test_bls_prove_small_fixture(cuda):
         want = json.load(f)
     pk = ProvingKey.load(os.path.join(VECTORS, "torch_pk_bls12_381_mulchain12.npz"), device=cuda)
     g16 = Groth16(BLS12_381, device=cuda)
-    z = MulChainCircuit(seed=7, n=12).assignment(BLS_R)
     _native.reset_launches()
-    proof = g16.prove_from_assignment(pk, z, int(want["r"]), int(want["s"]))
+    proof = g16.prove(pk, MulChainCircuit(seed=7, n=12), r=int(want["r"]), s=int(want["s"]))
     assert ser.serialize_proof(proof, BLS12_381).hex() == want["proof_bytes_hex"]
     assert g16.verify(pk.vk, want["public_input"], proof)
     for k in ("bucket_madd_rows_bls12_381_g1", "bucket_madd_rows_bls12_381_g2",

@@ -19,6 +19,7 @@ from snark_tpu_torch.fields.limbs import FR
 from snark_tpu_torch.fields.params import BN254
 from snark_tpu_torch.groth16 import Groth16 as TorchGroth16
 from snark_tpu_torch.groth16 import ProvingKey as TorchProvingKey
+from snark_tpu_torch.groth16 import synthesize_matrices, synthesize_witness
 from snark_tpu_torch.models import MulChainCircuit as TorchMulChain
 from snark_tpu_torch.ops import curve as C
 from snark_tpu_torch.ops.ntt import bit_reverse_indices
@@ -178,6 +179,9 @@ def test_missing_query_raises(port_pk):
 
 
 def test_mulchain_assignment_matches_jax(port_pk):
+    """The port's prove-mode synthesis of the fixture circuit gives the JAX
+    synthesis's full assignment, and its setup-mode synthesis the columns
+    of the JAX key's matrices."""
     from snark_tpu.fields.host import Fp
     from snark_tpu.fields import BN254 as J_BN254
     from snark_tpu.models import MulChainCircuit
@@ -187,18 +191,22 @@ def test_mulchain_assignment_matches_jax(port_pk):
     cs.set_mode(SynthesisMode.prove(construct_matrices=False, generate_lc_assignments=False))
     MulChainCircuit(seed=FIXTURE_SEED, n=FIXTURE_N).generate_constraints(cs)
     port = TorchMulChain(seed=FIXTURE_SEED, n=FIXTURE_N)
-    assert port.assignment(BN254.fr.modulus) == list(cs.full_assignment())
-    for cols, mat in zip(port.csr_columns(), (port_pk.mat_a, port_pk.mat_b, port_pk.mat_c)):
-        assert np.array_equal(cols, mat.cols.numpy())
+    assert synthesize_witness(port, BN254) == list(cs.full_assignment())
+    coo, values, nc, _, _ = synthesize_matrices(port, BN254)
+    for (indptr, col, cid), mat in zip(coo, (port_pk.mat_a, port_pk.mat_b, port_pk.mat_c)):
+        assert np.array_equal(indptr, np.arange(nc + 1)) and (cid == 0).all()
+        assert np.array_equal(col.reshape(-1, 1), mat.cols.numpy())
 
 
 def test_prove_fixture_cpu(port_pk):
-    """The port's plain path proves the fixture to the JAX package's
-    committed proof, bit for bit, and the proof verifies."""
+    """The port's plain path proves the fixture, synthesized by the port
+    (`prove(pk, circuit, r, s)`), to the JAX package's committed proof, bit
+    for bit, and the proof verifies."""
     want = committed_proof()
     g16 = TorchGroth16(device="cpu")
-    z = TorchMulChain(seed=FIXTURE_SEED, n=FIXTURE_N).assignment(BN254.fr.modulus)
-    proof = g16.prove_from_assignment(port_pk, z, int(want["r"]), int(want["s"]))
+    circuit = TorchMulChain(seed=FIXTURE_SEED, n=FIXTURE_N)
+    proof = g16.prove(port_pk, circuit, r=int(want["r"]), s=int(want["s"]))
+    assert list(g16.last_run.stage_ms)[:2] == ["synthesize", "upload"]
     assert tser.serialize_proof(proof, BN254).hex() == want["proof_bytes_hex"]
     assert g16.verify(port_pk.vk, want["public_input"], proof)
     assert not g16.verify(port_pk.vk, [FIXTURE_SEED + 1], proof)

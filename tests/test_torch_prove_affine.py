@@ -37,8 +37,7 @@ def test_prove_fixture_affine_cpu():
         want = json.load(f)
     pk = ProvingKey.load(os.path.join(VECTORS, "torch_pk_bn254_mulchain1023.npz"), device="cpu")
     g16 = Groth16(device="cpu", affine_msm=True)
-    z = MulChainCircuit(seed=4, n=1023).assignment(BN254.fr.modulus)
-    proof = g16.prove_from_assignment(pk, z, int(want["r"]), int(want["s"]))
+    proof = g16.prove(pk, MulChainCircuit(seed=4, n=1023), r=int(want["r"]), s=int(want["s"]))
     # A, B, B1 and H have 2048 elements for 2^8 buckets: the affine gate's
     # edge; L has fewer and takes the scan
     engaged = {key: plan.uses_affine(2048) for key, plan in g16._msm.items()}

@@ -9,8 +9,9 @@ keys' vectors take the reference's legacy fixed-base path, whose query
 arrays are projective; the 1023 key was written with SNARK_TPU_SETUP_QUERY=0
 and holds only h_query and l_query, the two vectors below 2048 points).
 A live JAX setup takes minutes on the CPU even at n = 8, so the committed
-files are the oracle. The port's circuit matrices are held against the JAX
-synthesis, and the port's own BLS12-381 key proves the committed proof.
+files are the oracle. The port's setup synthesizes each circuit with its
+own relations layer; that synthesis is held against the JAX synthesis, and
+the port's own BLS12-381 key proves the committed proof through `prove`.
 """
 
 import json
@@ -22,7 +23,7 @@ import pytest
 import torch
 
 from snark_tpu_torch.fields.params import BLS12_381, BN254
-from snark_tpu_torch.groth16 import Groth16
+from snark_tpu_torch.groth16 import Groth16, synthesize_matrices
 from snark_tpu_torch.models import MulChainCircuit
 from snark_tpu_torch.snark import serialize as tser
 
@@ -45,8 +46,8 @@ def _torch_threads():
 
 
 def port_setup(fixture: str):
-    """The port's key for a fixture's circuit from random.Random(0), made
-    once per test process."""
+    """The port's key for a fixture's circuit, synthesized by the port,
+    from random.Random(0), made once per test process."""
     if fixture not in _KEYS:
         curve, seed, n = FIXTURES[fixture]
         g16 = Groth16(curve, device="cpu")
@@ -71,8 +72,10 @@ def test_setup_equals_jax_key(fixture, tmp_path):
 
 
 def test_coo_arrays_equal_jax_synthesis():
-    """MulChainCircuit.coo_arrays equals the JAX synthesis's
-    to_coo_arrays and interner values, array for array, on both curves."""
+    """The port's setup synthesis (`synthesize_matrices`) equals
+    the JAX synthesis the JAX setup runs: to_coo_arrays, interner values
+    and the counts, array for array, on both curves, with both of
+    MulChain's synthesis paths."""
     from snark_tpu.fields.host import Fp
     from snark_tpu.fields.params import BLS12_381 as J_BLS, BN254 as J_BN254
     from snark_tpu.models import MulChainCircuit as JaxMulChain
@@ -83,23 +86,23 @@ def test_coo_arrays_equal_jax_synthesis():
         new_ref,
     )
 
-    for curve in (J_BN254, J_BLS):
+    for jax_curve, curve in ((J_BN254, BN254), (J_BLS, BLS12_381)):
         for seed, n in ((4, 1023), (7, 12), (3, 1)):
-            cs = new_ref(Fp(curve.fr))
+            cs = new_ref(Fp(jax_curve.fr))
             cs.set_optimization_goal(OptimizationGoal.Constraints)
             cs.set_mode(SynthesisMode.setup())
             JaxMulChain(seed=seed, n=n).generate_constraints(cs)
             cs.finalize()
             want = cs.inner.to_coo_arrays(R1CS_PREDICATE_LABEL)
-            circuit = MulChainCircuit(seed=seed, n=n)
-            got, values = circuit.coo_arrays(curve.fr.modulus)
-            assert values == list(cs.inner.field_interner.values)
-            assert (circuit.num_constraints, circuit.num_instance, circuit.num_variables) == (
-                cs.num_constraints(), cs.num_instance_variables,
-                cs.num_instance_variables + cs.num_witness_variables)
-            for g, w in zip(got, want):
-                for a, b in zip(g, w):
-                    assert a.dtype == b.dtype and np.array_equal(a, b)
+            for batch in (True, False):
+                got, values, nc, ni, m = synthesize_matrices(
+                    MulChainCircuit(seed=seed, n=n, batch=batch), curve)
+                assert values == list(cs.inner.field_interner.values)
+                assert (nc, ni, m) == (cs.num_constraints(), cs.num_instance_variables,
+                                       cs.num_instance_variables + cs.num_witness_variables)
+                for g, w in zip(got, want):
+                    for a, b in zip(g, w):
+                        assert a.dtype == b.dtype and np.array_equal(a, b)
 
 
 def test_own_bls_key_proves_committed_proof():
@@ -108,8 +111,6 @@ def test_own_bls_key_proves_committed_proof():
     g16, pk, vk = port_setup("torch_pk_bls12_381_mulchain12.npz")
     with open(os.path.join(VECTORS, "torch_proof_bls12_381_mulchain12.json")) as f:
         want = json.load(f)
-    circuit = MulChainCircuit(seed=7, n=12)
-    proof = g16.prove_from_assignment(pk, circuit.assignment(BLS12_381.fr.modulus),
-                                      int(want["r"]), int(want["s"]))
+    proof = g16.prove(pk, MulChainCircuit(seed=7, n=12), r=int(want["r"]), s=int(want["s"]))
     assert tser.serialize_proof(proof, BLS12_381).hex() == want["proof_bytes_hex"]
     assert g16.verify(vk, want["public_input"], proof)
