@@ -97,6 +97,27 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    passes the host pairing check; its stage times beside prove_full's
    (pooled tables); the key saved to a temporary directory and loaded on
    the card proves the same proof from the same rng.
+5d. batch_config5: the reference's configuration 5 (`scripts/run_configs.py`
+   config5, one-card mode) through `snark_tpu_torch.run_configs`: the key of
+   MulChain(0, 2^18 − 64, batch=True) set up from random.Random(0), the
+   (r, s) pairs drawn from random.Random(1) (a warm pair, then one a
+   proof), a warm prove, then BATCH_PROOFS proves of MulChain(s, ...), each
+   witness synthesized on a one-thread executor while the previous one is
+   proved; then, after a warm batch of one, the same circuits and pairs
+   through `BatchProver.prove_batch` (`run_configs.config5_batch`, the
+   path of `--batch-prover`: each MSM's window sums, then its Horner
+   combine on the card: one K18 launch). Every batch proof
+   must equal the loop's, the first four must verify, K18 must have
+   launched 5 a proof in the batch, and K1-K4 must have launched there.
+   Its line: both modes' wall seconds and proofs/s, the batch's stage
+   times (synthesize, device, readback, assemble) and its device stage's
+   split (upload, matvec, h, digits, window sums, combine), peak device memory
+   (also less what the smoke held before), the batch's launches (K18's go
+   into the kernel line as `batch_launches`).
+5e. configs: configurations 1 and 2 through `snark_tpu_torch.run_configs`
+   (2: BN254 2^16 − 64, setup from random.Random(0), warm prove
+   random.Random(5), prove random.Random(1), verify with [7]); 2 must
+   verify.
 6. msm_bench: `snark_tpu_torch.bench` on BN254 G1 at 2^20 points, signed
    c = 13, with the scan and with the batch-affine tree; G2 at 2^18 both
    ways; G1 unsigned c = 12 with the scan; every result equal to the pool
@@ -235,6 +256,7 @@ SETUP_SAMPLES = 64  # rows of each table the setup phases check on the host
 WALK_CHECK_LANES = 4096  # lanes of a_tbl's walk held against K1's plain version (64 identity)
 SETUP_KERNELS = ("bucket_madd_rows", "field_ew", "affine_tree_mul")  # K1, K4, K7
 SYNTH_CHAIN_LCS = 1 << 16  # LCs of the synthesis phase's chain
+BATCH_LOG_N, BATCH_PROOFS = 18, 32  # configuration 5 in batch_config5
 MADD_PARTS_CHECK = (12, 8)  # log n and c of bench_madd_parts' whole-pipeline check
 SCRIPT_BODY_LINE = {"nosub": 73, "halfmul": 88, "nodecode": 98}  # scripts/bench_madd_parts.py
 
@@ -1488,6 +1510,75 @@ def phase_prove_setup(pk, vk, curve, device, pooled: dict, save: bool,
     return info
 
 
+def phase_batch_config5(device, smi: str) -> tuple[dict, dict]:
+    """The reference's configuration 5 at BATCH_PROOFS proofs of MulChain(s,
+    2^BATCH_LOG_N − 64, batch=True) through `run_configs` (`config5_setup`:
+    the key of circuit 0 from random.Random(0), the (r, s) pairs from
+    random.Random(1); `config5_loop`: a warm prove, then the proves with the
+    witness prefetch; `config5_batch`: a warm batch of one, then the same
+    circuits and pairs through `BatchProver.prove_batch`; each sets the
+    launch counters and the peak memory to 0 after its warm run). Every
+    batch proof must equal the loop's at its index, the first four must
+    verify, and K18 must have launched 5 a proof in the batch. -> (phase
+    info, the batch's launch counts)."""
+    import torch
+
+    from snark_tpu_torch import _native
+    from snark_tpu_torch import run_configs as RC
+
+    run = RC.config5_setup(BATCH_PROOFS, BATCH_LOG_N, device)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()  # the key, and what the smoke holds already
+    loop_proofs, loop_s = RC.config5_loop(run)
+    loop_peak = torch.cuda.max_memory_allocated()
+    B = BATCH_PROOFS
+    proofs, batch_s, bp = RC.config5_batch(run)
+    launches = dict(_native.LAUNCHES)
+    batch_peak = torch.cuda.max_memory_allocated()
+    k18 = {g: launches[_native.counter_name("horner_combine", "bn254", g)] for g in ("g1", "g2")}
+    if k18 != {"g1": 4 * B, "g2": B}:
+        raise AssertionError(f"the batch of {B} launched K18 {k18} times")
+    path = [_native.counter_name(k, "bn254", g) for k in ("bucket_madd_rows", "masked_add")
+            for g in ("g1", "g2")] + ["ntt_pass", "field_ew"]
+    if not all(launches[k] for k in path):
+        raise AssertionError(f"the batch launched none of {[k for k in path if not launches[k]]}")
+    differ = [i for i, (a, b) in enumerate(zip(proofs, loop_proofs)) if a != b]
+    if len(proofs) != len(loop_proofs) or differ:
+        raise AssertionError(f"BatchProver's proofs {differ} differ from the loop's")
+    t = time.time()
+    if not RC.verify_sample(run, proofs):
+        raise AssertionError("a sampled configuration-5 proof does not verify")
+    info = {
+        "config": 5, "curve": "bn254", "constraints": (1 << BATCH_LOG_N) - 64,
+        "m": run.pk.num_instance + run.pk.num_witness, "domain": run.pk.domain_size,
+        "nvidia_smi": smi, "setup_seconds": round(run.setup_s, 3),
+        "loop": {"proofs": B, "wall_s": round(loop_s, 3),
+                 "proofs_per_s": round(B / loop_s, 4),
+                 "max_memory_allocated": loop_peak, "peak_bytes": loop_peak - held},
+        "batch_prover": {"proofs": B, "wall_s": round(batch_s, 3),
+                         "proofs_per_s": round(B / batch_s, 4),
+                         "stage_ms": {k: round(v, 3) for k, v in bp.last_run.stage_ms.items()},
+                         "device_ms": {k: round(v, 3) for k, v in bp.last_run.device_ms.items()},
+                         "max_memory_allocated": batch_peak, "peak_bytes": batch_peak - held},
+        "held_before": held, "k18_launches": k18, "proofs_equal": True,
+        "verified_sample": 4, "verify_seconds": round(time.time() - t, 3),
+        "launches": {k: v for k, v in launches.items() if v},
+    }
+    return info, launches
+
+
+def phase_configs(device) -> dict:
+    """Configurations 1 and 2 through `run_configs` (2: BN254 2^16 − 64,
+    the setup from random.Random(0), a warm prove from random.Random(5), the
+    prove from random.Random(1)); configuration 2's proof must verify."""
+    from snark_tpu_torch import run_configs as RC
+
+    c1, c2 = RC.config1(), RC.config2(device)
+    if c1["satisfied"] is not True or c2["verified"] is not True:
+        raise AssertionError(f"configurations 1, 2: {c1}, {c2}")
+    return {"config1": c1, "config2": c2}
+
+
 def phase_msm_bench(inputs: dict, smi: str, unsigned: bool = True) -> tuple[dict, dict]:
     """`snark_tpu_torch.bench` runs on the inputs' curve, each exact against
     the pool oracle: G1 and G2 signed, scan and affine, and (`unsigned`) G1
@@ -1844,6 +1935,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.time()
+    info_c5, batch_launches = phase_batch_config5(device, smi)
+    phase_line("batch_config5", t0, **info_c5)
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    phase_line("configs", t0, **phase_configs(device))
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
     info_b, bench_launches = phase_msm_bench(inputs, smi)
     phase_line("msm_bench", t0, **info_b, launches={k: v for k, v in bench_launches.items() if v})
 
@@ -1931,6 +2031,10 @@ def main() -> int:
             if row["launches"] is None:
                 path = field_launches if row["name"].startswith("mont_mul16") else counts
                 row["launches"] = path.get(row["name"], 0)
+    # K18's launches in configuration 5's batch (BN254), beside the bench's
+    for row in msm_rows + bls_msm_rows:
+        if row["name"].startswith("horner_combine"):
+            row["batch_launches"] = batch_launches.get(row["name"], 0)
     # K1's, K4's and K7's launches in the setups, beside those of their paths
     for group, counts in ((rows + msm_rows, setup_launches),
                           (bls_rows + bls_msm_rows, setup_launches_bls)):

@@ -1,5 +1,6 @@
 from .groth16 import (
     Groth16,
+    PreparedVerifyingKey,
     Proof,
     ProvingKey,
     VerifyingKey,
@@ -8,5 +9,5 @@ from .groth16 import (
     synthesize_witness,
 )
 
-__all__ = ["Groth16", "Proof", "ProvingKey", "VerifyingKey", "assemble_proof",
-           "synthesize_matrices", "synthesize_witness"]
+__all__ = ["Groth16", "PreparedVerifyingKey", "Proof", "ProvingKey", "VerifyingKey",
+           "assemble_proof", "synthesize_matrices", "synthesize_witness"]

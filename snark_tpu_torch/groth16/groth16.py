@@ -233,14 +233,14 @@ class SetupRun:
 
 def _stage_clock(device: torch.device, stage_ms: dict):
     """-> tick(label): the wall time since the last tick, ending in a
-    device synchronise, into stage_ms[label]."""
+    device synchronise, added to stage_ms[label]."""
     t = [time.perf_counter()]
 
     def tick(label):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         now = time.perf_counter()
-        stage_ms[label] = (now - t[0]) * 1e3
+        stage_ms[label] = stage_ms.get(label, 0.0) + (now - t[0]) * 1e3
         t[0] = now
 
     return tick
@@ -352,25 +352,44 @@ class Groth16:
         """Stage 3: -> h, canonical standard form, bit-reversed order."""
         return self.ntt_plan(pk.domain_size).h_std(a, b, c)
 
-    def msm_sums(self, pk: ProvingKey, z_std: torch.Tensor, h_std: torch.Tensor, tick):
-        """Stages 4-5: the five MSMs -> (affine host points, whether each
-        took the batch-affine tree)."""
+    def witness_h(self, pk: ProvingKey, z: list[int], tick):
+        """Stages 1-3 from the assignment z: the upload, the three matvecs
+        (`witness_evals`) and h (`h_coefficients`). -> (z_std, h_std)"""
+        z_std = self.fr.tensor(z, self.device, mont=False)
+        tick("upload")
+        a, b, c = self.witness_evals(pk, z_std)
+        tick("matvec")
+        h_std = self.h_coefficients(pk, a, b, c)
+        tick("h")
+        return z_std, h_std
+
+    def msm_terms(self, pk: ProvingKey, z_std: torch.Tensor, h_std: torch.Tensor):
+        """The five MSMs of a proof, the signed c-bit digits of z and h
+        made: [(name, plan, table, digits)] for A, B (G2), B1, L (z past
+        the instance) and H."""
         nbits = self.curve.fr.num_bits
         c = pick_window_plane_signed(z_std.shape[0])
         z_digits = signed_digits(z_std, c, nbits)
         h_digits = signed_digits(h_std, c, nbits)
-        tick("digits")
         g1, g2 = self.msm_plan(c, "g1"), self.msm_plan(c, "g2")
         ni = pk.num_instance
+        return [
+            ("A", g1, pk.a_tbl, z_digits),
+            ("B", g2, pk.b_g2_tbl, z_digits),
+            ("B1", g1, pk.b_g1_tbl, z_digits),
+            ("L", g1, pk.l_tbl, z_digits[ni:]),
+            ("H", g1, pk.h_tbl, h_digits),
+        ]
+
+    def msm_sums(self, pk: ProvingKey, z_std: torch.Tensor, h_std: torch.Tensor, tick):
+        """Stages 4-5: the five MSMs, each combined on the host -> (affine
+        host points, whether each took the batch-affine tree)."""
+        terms = self.msm_terms(pk, z_std, h_std)
+        tick("digits")
         sums, affine = {}, {}
-        for name, plan, tbl, digits, hc in (
-            ("A", g1, pk.a_tbl, z_digits, self.hg1),
-            ("B", g2, pk.b_g2_tbl, z_digits, self.hg2),
-            ("B1", g1, pk.b_g1_tbl, z_digits, self.hg1),
-            ("L", g1, pk.l_tbl, z_digits[ni:], self.hg1),
-            ("H", g1, pk.h_tbl, h_digits, self.hg1),
-        ):
-            sums[name] = plan.msm_host(tbl, digits.contiguous(), hc)
+        for name, plan, tbl, digits in terms:
+            host_curve = self.hg2 if plan.group == "g2" else self.hg1
+            sums[name] = plan.msm_host(tbl, digits.contiguous(), host_curve)
             affine[name] = plan.uses_affine(digits.shape[0])
             tick(f"msm {name}")
         return sums, affine
@@ -385,12 +404,7 @@ class Groth16:
             raise ValueError(f"a {pk.vk.curve.name} key for a {self.curve.name} prover")
         stage_ms = {}
         tick = _stage_clock(self.device, stage_ms)
-        z_std = self.fr.tensor(z, self.device, mont=False)
-        tick("upload")
-        a, b, c = self.witness_evals(pk, z_std)
-        tick("matvec")
-        h_std = self.h_coefficients(pk, a, b, c)
-        tick("h")
+        z_std, h_std = self.witness_h(pk, z, tick)
         sums, affine = self.msm_sums(pk, z_std, h_std, tick)
         proof = assemble_proof(
             self, pk, sums["A"], sums["B"], sums["B1"], sums["L"], sums["H"], r, s
@@ -570,6 +584,7 @@ class Groth16:
 
     # ----- verify (host pairing) ---------------------------------------------
     def process_vk(self, vk: VerifyingKey) -> PreparedVerifyingKey:
+        """Precompute the pairing terms (SNARK::process_vk)."""
         return PreparedVerifyingKey(
             vk=vk,
             alpha_beta=self.pairing.pairing(vk.alpha_g1, vk.beta_g2),
@@ -577,9 +592,12 @@ class Groth16:
             delta_g2_neg=self.hg2.neg(vk.delta_g2),
         )
 
-    def verify(self, vk: VerifyingKey, public_input: list[int], proof: Proof) -> bool:
-        """public_input without the leading ONE."""
-        pvk = self.process_vk(vk)
+    def verify_with_processed_vk(self, pvk: PreparedVerifyingKey, public_input: list[int],
+                                 proof: Proof) -> bool:
+        """public_input without the leading ONE. A public input of the wrong
+        length raises ValueError; the reference asserts it, and `python -O`
+        would drop that check."""
+        vk = pvk.vk
         if len(public_input) != len(vk.gamma_abc_g1) - 1:
             raise ValueError("public input length does not match the key")
         g1 = self.hg1
@@ -590,3 +608,7 @@ class Groth16:
             [(proof.a, proof.b), (acc, pvk.gamma_g2_neg), (proof.c, pvk.delta_g2_neg)]
         )
         return lhs == pvk.alpha_beta
+
+    def verify(self, vk: VerifyingKey, public_input: list[int], proof: Proof) -> bool:
+        """process_vk, then verify_with_processed_vk (the SNARK default)."""
+        return self.verify_with_processed_vk(self.process_vk(vk), public_input, proof)

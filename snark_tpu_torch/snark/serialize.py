@@ -286,6 +286,59 @@ def deserialize_vk(data: bytes, curve: CurveParams, compress: bool = True):
 # ----- predicates ----------------------------------------------------------
 
 
+def _canon_sparse_terms(p: int, terms):
+    """ark-poly SparsePolynomial canonical form: SparseTerm::new combines
+    duplicate variables and drops zero powers; from_coefficients_vec drops
+    zero coefficients, merges duplicate terms and sorts by the derived
+    lexicographic SparseTerm ordering (consumed by the Predicate codec,
+    reference predicate/mod.rs:34-61 + polynomial_constraint.rs:15-38)."""
+    combined: dict = {}
+    for c, t in terms:
+        d: dict = {}
+        for v, e in t:
+            if e:
+                d[v] = d.get(v, 0) + e
+        key = tuple(sorted(d.items()))
+        combined[key] = (combined.get(key, 0) + c) % p
+    out = [(c, k) for k, c in combined.items() if c != 0]
+    out.sort(key=lambda ct: ct[1])
+    return out
+
+
+def serialize_predicate(params: FieldParams, pred) -> bytes:
+    """Predicate::Polynomial -> bytes. The reference's manual Canonical
+    impl passes straight through to the inner PolynomialPredicate
+    (predicate/mod.rs:47-56; no variant tag), which derives to
+    SparsePolynomial { num_vars: u64, terms: Vec<(F, Vec<(u64, u64)>)> }."""
+    terms = _canon_sparse_terms(params.modulus, pred.terms)
+    items = []
+    for c, t in terms:
+        items.append(
+            serialize_fp(params, c)
+            + serialize_vec([struct.pack("<QQ", v, e) for v, e in t])
+        )
+    return struct.pack("<Q", pred.arity) + serialize_vec(items)
+
+
+def deserialize_predicate(params: FieldParams, data: bytes, offset: int = 0):
+    from ..relations.predicate import PolynomialPredicate
+
+    (arity,) = struct.unpack_from("<Q", data, offset)
+    offset += 8
+    n_terms, offset = read_len(data, offset)
+    terms = []
+    for _ in range(n_terms):
+        c, offset = deserialize_fp(params, data, offset)
+        n_pairs, offset = read_len(data, offset)
+        t = []
+        for _ in range(n_pairs):
+            v, e = struct.unpack_from("<QQ", data, offset)
+            offset += 16
+            t.append((v, e))
+        terms.append((c, t))
+    return PolynomialPredicate(Fp(params), arity, terms), offset
+
+
 # ----- proving key ---------------------------------------------------------
 
 

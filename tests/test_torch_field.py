@@ -138,6 +138,24 @@ def test_add_sub_wraparound(name):
     assert field.decode(sub_plain(a, b, field)) == [(x - y) % p for x, y in zip(av, bv)]
 
 
+@pytest.mark.parametrize("impl", ["u32", "f32"])
+def test_get_compute_field_backends(impl):
+    """`get_compute_field` gives each backend's cached field, and both
+    cube the same values as the host field; an unknown name raises."""
+    from snark_tpu_torch.fields import get_compute_field
+    from snark_tpu_torch.fields.device import get_device_field
+    from snark_tpu_torch.fields.device_f32 import get_device_field_f32
+
+    getter = {"u32": get_device_field, "f32": get_device_field_f32}[impl]
+    field = get_compute_field(BN254.fr, "cpu", impl)
+    assert field is getter(BN254.fr, "cpu")
+    p = J_BN254.fr.modulus
+    vals = [0, 1, p - 1] + rand_vals(p, 13, 8)
+    assert field.to_host_ints(field.pow_const(field.array(vals), 3)) == [pow(v, 3, p) for v in vals]
+    with pytest.raises(ValueError, match="no field implementation"):
+        get_compute_field(BN254.fr, "cpu", "u16")
+
+
 def test_csr_limb_repack_matches_jax():
     """The reference's 16-bit-limb Montgomery coefficients (R = 2^256) are
     the port's limbs after a repack, with no change of value."""
@@ -204,7 +222,8 @@ def test_port_imports_no_jax():
     """No module of the port, and not chip_smoke.py, imports jax or the
     JAX package; the walk reaches every module, the field layer, K9-K17,
     bench_field, bench_vpu_peak, bench_reduce_parts, bench_bisect_mul, the
-    relations layer, the circuits and the utilities among them."""
+    relations layer, the circuits, the utilities, the SNARK trait layer,
+    the batched prover and the configuration runner among them."""
     walked = {os.path.relpath(path, ROOT) for path in _port_sources()}
     relations = ("__init__", "assignment", "constraint_system", "constraint_system_ref",
                  "error", "field_interner", "gadgets", "instance_outliner", "lc_map",
@@ -215,7 +234,10 @@ def test_port_imports_no_jax():
                 "bench_vpu_peak.py", "ops/mul_parts.py", "bench_reduce_parts.py",
                 "bench_bisect_mul.py", *(f"relations/{m}.py" for m in relations),
                 "models/__init__.py", "models/circuits.py", "utils/__init__.py",
-                "utils/rng.py", "utils/timing.py"):
+                "utils/rng.py", "utils/timing.py", "fields/__init__.py", "snark/__init__.py",
+                "snark/api.py", "snark/universal.py", "snark/serialize.py",
+                "groth16/groth16.py", "parallel/__init__.py", "parallel/batch.py",
+                "run_configs.py"):
         assert os.path.join("snark_tpu_torch", mod) in walked, mod
     bad = []
     for path in _port_sources():

@@ -32,6 +32,7 @@ from snark_tpu_torch.ops import mul_parts as MP
 from snark_tpu_torch.ops import vpu_peak as VP
 from snark_tpu_torch.ops.msm import signed_digits, unsigned_digits
 from snark_tpu_torch.ops.msm_plane import PlaneMsm
+from snark_tpu_torch.parallel import BatchProver
 from snark_tpu_torch.snark import serialize as ser
 
 pytestmark = pytest.mark.gpu
@@ -288,6 +289,41 @@ def test_prove_synthesized_equals_cpu(cuda):
         assert "synthesize" in g16.last_run.stage_ms
     assert proofs[0] == proofs[1]
     assert g16.verify(ProvingKey.load(path, device="cpu").vk, [4], proofs[0])
+
+
+@pytest.mark.parametrize("fixture", ["mulchain8", "mulchain1023"])
+def test_batch_prover_equals_cpu(cuda, fixture):
+    """`BatchProver` on the card gives the CPU port's proofs at the same
+    (r, s), the JAX-written proof first: MulChain(11, 8) set up from
+    random.Random(42405) (`proof_bn254.json`), seeds 11, 12, 13; the
+    m = 2048 fixture key, seeds 4, 5, 6. Each MSM's combine is one K18
+    launch: 5 a proof, 4 in G1 and 1 in G2."""
+    if fixture == "mulchain8":
+        with open(os.path.join(VECTORS, "proof_bn254.json")) as f:
+            want = json.load(f)
+        seeds, n = (11, 12, 13), 8
+        keys = [Groth16(device=dev).circuit_specific_setup(
+            MulChainCircuit(seed=11, n=8, batch=False), random.Random(int(want["setup_seed"])))[0]
+            for dev in (cuda, "cpu")]
+    else:
+        with open(os.path.join(VECTORS, "torch_proof_bn254_mulchain1023.json")) as f:
+            want = json.load(f)
+        seeds, n = (4, 5, 6), 1023
+        path = os.path.join(VECTORS, "torch_pk_bn254_mulchain1023.npz")
+        keys = [ProvingKey.load(path, device=dev) for dev in (cuda, "cpu")]
+    circuits = [MulChainCircuit(seed=s, n=n) for s in seeds]
+    rs = [(int(want["r"]), int(want["s"])), (1, 2), (3 << 200, 5 << 100)]
+    g16 = Groth16(device=cuda)
+    _native.reset_launches()
+    proofs = BatchProver(g16, keys[0]).prove_batch(circuits, rs=rs)
+    assert _native.LAUNCHES["horner_combine_g1"] == 4 * len(seeds)
+    assert _native.LAUNCHES["horner_combine_g2"] == len(seeds)
+    assert ser.serialize_proof(proofs[0], BN254).hex() == want["proof_bytes_hex"]
+    cpu = Groth16(device="cpu")
+    pvk = cpu.process_vk(keys[1].vk)
+    for seed, circuit, (r, s), proof in zip(seeds, circuits, rs, proofs):
+        assert proof == cpu.prove(keys[1], circuit, r=r, s=s)
+        assert cpu.verify_with_processed_vk(pvk, [seed], proof)
 
 
 # ---------------------------------------------------------------------------
