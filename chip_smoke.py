@@ -46,7 +46,14 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    pass's (the mean over a transform), bound by operations with the bytes
    bound beside it, and it adds each pass's time, a transform's and the h
    pipeline's (CUDA events over 10 runs) and one stage's (`ntt_stage`), and
-   the ptxas of the DIF instance (`ptxas_dif`). The same
+   the ptxas of the DIF instance (`ptxas_dif`). In BN254 it also holds K3
+   as the six-step NTT's batched row transforms (`ops/ntt.py` `ntt_rows`:
+   rows bit-reversed, then stages [0, log m) over the whole shard with
+   tw_log = log m − 1) against `ntt_rows_plain` (the same passes through
+   `ntt_pass_plain`), forward and inverse with its 1/m scale, at the
+   shards dist_prove and config4 give it (2^18 elements at one rank and
+   2^17 at two, m = 512) and the dry run's (2^9 at two, m = 32): the row's
+   `ntt_rows`, each with its time and the plain version's. The same
    phase holds K9 and K10 (the standalone 16-bit-limb products) at 2^20
    elements of BN254 Fr, the shape of bench_field below, and K11 (the
    masked mixed add) in G1 and G2 at the lane count of the 2^18 prove's
@@ -97,6 +104,18 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    passes the host pairing check; its stage times beside prove_full's
    (pooled tables); the key saved to a temporary directory and loaded on
    the card proves the same proof from the same rng.
+5c'. dist_prove: the distributed prove (`parallel/plane_dist.py`
+   `DistPlaneProver`, `prove_from_file`) of that circuit from the saved key,
+   loaded by every rank on the CPU, at random.Random(2024), in a world of
+   one rank (NCCL) and of two ranks (gloo, both on the one card, their
+   exchanges staged through the host), spawned by `parallel/launch.py`
+   `run_ranks`, each after a warm prove. Every rank's proof must equal
+   prove_setup's and verify, and every rank must have launched K1-K4. Per
+   rank: stage times (each ending in a synchronise; the window sums split
+   into accumulate, exchange, fold, gather), the bytes sent by all_to_all
+   and all_gather, peak device memory, K1-K4's launches (rank 0's go into
+   the kernel line as `dist_launches` from the two-rank world and
+   `dist_one_rank_launches` from the one-rank world).
 5d. batch_config5: the reference's configuration 5 (`scripts/run_configs.py`
    config5, one-card mode) through `snark_tpu_torch.run_configs`: the key of
    MulChain(0, 2^18 − 64, batch=True) set up from random.Random(0), the
@@ -114,10 +133,24 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    split (upload, matvec, h, digits, window sums, combine), peak device memory
    (also less what the smoke held before), the batch's launches (K18's go
    into the kernel line as `batch_launches`).
+5d'. batch_dp: `BatchProver` with its batch split over "dp" of a (dp, tp)
+   = (2, 1) mesh of two ranks on the card (gloo), over the first
+   BATCH_DP_PROOFS circuits and (r, s) pairs of batch_config5 under its key
+   (saved without its query arrays, loaded by each rank on the card): every
+   rank returns every proof, each equal to the one-device batch's, and
+   K18 launched 5 times a proof of its share (rank 0's counts go into the
+   kernel line as `batch_dp_launches`).
 5e. configs: configurations 1 and 2 through `snark_tpu_torch.run_configs`
    (2: BN254 2^16 − 64, setup from random.Random(0), warm prove
    random.Random(5), prove random.Random(1), verify with [7]); 2 must
    verify.
+5f. config4: `run_configs` configuration 4 at 2^CONFIG4_LOG_N:
+   `DistPlaneMsm.window_sums` and `DistPlaneNtt.fft` timed in a world of
+   one rank (NCCL) and in a world of two (gloo), the results equal; its
+   line.
+5g. dryrun: `dryrun.dryrun_multichip(2, "cuda")` (log_n 10): the
+   distributed prove of MulChain(5, 2^10 − 2) verifies on both ranks, then
+   the dp-sharded h pipeline of a lite `BatchProver`.
 6. msm_bench: `snark_tpu_torch.bench` on BN254 G1 at 2^20 points, signed
    c = 13, with the scan and with the batch-affine tree; G2 at 2^18 both
    ways; G1 unsigned c = 12 with the scan; every result equal to the pool
@@ -209,6 +242,7 @@ import random
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -257,6 +291,14 @@ WALK_CHECK_LANES = 4096  # lanes of a_tbl's walk held against K1's plain version
 SETUP_KERNELS = ("bucket_madd_rows", "field_ew", "affine_tree_mul")  # K1, K4, K7
 SYNTH_CHAIN_LCS = 1 << 16  # LCs of the synthesis phase's chain
 BATCH_LOG_N, BATCH_PROOFS = 18, 32  # configuration 5 in batch_config5
+DIST_RANKS = (1, 2)  # dist_prove's worlds: NCCL at one rank, gloo at two on the one card
+DIST_TIMEOUT_S = 300  # a world of ranks that takes longer is ended and fails its phase
+BATCH_DP_MESH, BATCH_DP_PROOFS = (2, 1), 4  # batch_dp's (dp, tp) mesh and proofs
+CONFIG4_LOG_N = 18
+# (log2 of a rank's shard, row length m) that the distributed paths give
+# `ntt_rows`: dist_prove and config4 at 2^18 on one rank and on two, the
+# dry run at 2^10 on two
+NTT_ROWS_SHAPES = ((18, 512), (17, 512), (9, 32))
 MADD_PARTS_CHECK = (12, 8)  # log n and c of bench_madd_parts' whole-pipeline check
 SCRIPT_BODY_LINE = {"nosub": 73, "halfmul": 88, "nodecode": 98}  # scripts/bench_madd_parts.py
 
@@ -917,6 +959,8 @@ def phase_kernels(key: SyntheticKey, z_std, device) -> list[dict]:
     x, y, w = (fr.tensor([rng.randrange(fr.p) for _ in range(n)], device) for _ in range(3))
     plan = N.NttPlan(n, device, fr)
     rows.append(ntt_pass_row(plan, x, y, w, curve.name, ntt_src, fr_mul))
+    if not bls:
+        rows[-1]["ntt_rows"] = ntt_rows_checks(fr, device)
 
     for mode in ("mul", "add", "hadamard"):
         o4 = N.field_ew(mode, x, y, plan.coset_scale_rev, plan.z_coset_inv, fr)
@@ -987,6 +1031,29 @@ def ntt_pass_row(plan, x, y, w, curve_name: str, source: str, fr_mul: int) -> di
         ntt_stage_ms=stage_ms, ntt_stage_bound=bounds((n // 2) * fr_mul, n * 64 + (1 << s) * 32),
     )
     return row
+
+
+def ntt_rows_checks(fr, device) -> list[dict]:
+    """K3 through `ntt_rows` at each of NTT_ROWS_SHAPES, forward and inverse
+    (the inverse twiddles and the 1/m scale), equal to `ntt_rows_plain` on
+    the same shard; each with its time and the plain version's."""
+    from snark_tpu_torch.ops import ntt as N
+
+    out = []
+    for log_n, m in NTT_ROWS_SHAPES:
+        rng = random.Random(log_n)
+        x = fr.tensor([rng.randrange(fr.p) for _ in range(1 << log_n)], device)
+        plan = N.NttPlan(m, device, fr)
+        inv_m = fr.const(pow(m, -1, fr.p), device)
+        for inverse, tw, scale in ((False, plan.fwd_tw, None), (True, plan.inv_tw, inv_m)):
+            def run(fn=N.ntt_rows, x=x, m=m, tw=tw, scale=scale):
+                return fn(x, m, tw, scale, fr)
+
+            want, plain = plain_time(lambda: run(N.ntt_rows_plain))
+            out.append({"elements": 1 << log_n, "m": m, "rows": (1 << log_n) // m,
+                        "inverse": inverse, "max_abs_err": max_abs_err(run(), want),
+                        "ms": cuda_ms(run, reps=10), "plain_ms": plain})
+    return out
 
 
 def phase_kernels_field16(fr, device) -> list[dict]:
@@ -1447,18 +1514,17 @@ def phase_setup_full(curve, n_constraints: int, device, smi: str, config3: bool 
     return info, pk, vk, launches
 
 
-def phase_prove_setup(pk, vk, curve, device, pooled: dict, save: bool,
-                      config3: bool = False) -> dict:
+def phase_prove_setup(pk, vk, curve, device, pooled: dict, save_dir: str | None,
+                      config3: bool = False):
     """Prove the setup's circuit from its key through `prove(pk, circuit,
     rng)` as `setup_config` says (configuration 3: a warm prove from
     random.Random(5), then the timed prove from random.Random(1)); the host
     pairing check must pass with the circuit's public input. Its stage
     times beside `pooled`, those of prove_full on the synthetic key of
-    pooled tables. With `save`, the key goes to a temporary directory
-    (`ProvingKey.save`), is read back on the card (`ProvingKey.load`) and
-    must prove the same proof from the same rng."""
-    import tempfile
-
+    pooled tables. With `save_dir`, the key goes there (`ProvingKey.save`,
+    as `pk.npz`, kept for dist_prove), is read back on the card
+    (`ProvingKey.load`) and must prove the same proof from the same rng.
+    -> (phase info, the proof)."""
     import torch
 
     from snark_tpu_torch.groth16 import Groth16, ProvingKey
@@ -1493,24 +1559,23 @@ def phase_prove_setup(pk, vk, curve, device, pooled: dict, save: bool,
         "max_memory_allocated": torch.cuda.max_memory_allocated(), "held_before": held,
         "prove_peak_bytes": torch.cuda.max_memory_allocated() - held,
     })
-    if save:
-        with tempfile.TemporaryDirectory() as d:
-            path = os.path.join(d, "pk.npz")
-            t = time.time()
-            pk.save(path)
-            save_s, size = time.time() - t, os.path.getsize(path)
-            t = time.time()
-            loaded = ProvingKey.load(path, device=device)
-            load_s = time.time() - t
-            if g16.prove(loaded, circuit, random.Random(cfg["prove_seed"])) != proof:
-                raise AssertionError("the reloaded key proves another proof")
+    if save_dir is not None:
+        path = os.path.join(save_dir, "pk.npz")
+        t = time.time()
+        pk.save(path)
+        save_s, size = time.time() - t, os.path.getsize(path)
+        t = time.time()
+        loaded = ProvingKey.load(path, device=device)
+        load_s = time.time() - t
+        if g16.prove(loaded, circuit, random.Random(cfg["prove_seed"])) != proof:
+            raise AssertionError("the reloaded key proves another proof")
         info["save_round_trip"] = {"equal_proof": True, "file_bytes": size,
                                    "save_seconds": round(save_s, 3),
                                    "load_seconds": round(load_s, 3)}
-    return info
+    return info, proof
 
 
-def phase_batch_config5(device, smi: str) -> tuple[dict, dict]:
+def phase_batch_config5(device, smi: str):
     """The reference's configuration 5 at BATCH_PROOFS proofs of MulChain(s,
     2^BATCH_LOG_N − 64, batch=True) through `run_configs` (`config5_setup`:
     the key of circuit 0 from random.Random(0), the (r, s) pairs from
@@ -1520,7 +1585,8 @@ def phase_batch_config5(device, smi: str) -> tuple[dict, dict]:
     launch counters and the peak memory to 0 after its warm run). Every
     batch proof must equal the loop's at its index, the first four must
     verify, and K18 must have launched 5 a proof in the batch. -> (phase
-    info, the batch's launch counts)."""
+    info, the batch's launch counts, the configuration's run, the batch's
+    proofs)."""
     import torch
 
     from snark_tpu_torch import _native
@@ -1564,7 +1630,135 @@ def phase_batch_config5(device, smi: str) -> tuple[dict, dict]:
         "verified_sample": 4, "verify_seconds": round(time.time() - t, 3),
         "launches": {k: v for k, v in launches.items() if v},
     }
-    return info, launches
+    return info, launches, run, proofs
+
+
+def path_launches(launches: dict) -> dict:
+    """The BN254 K1-K4 counts of a run: the kernels of the prove's path."""
+    from snark_tpu_torch import _native
+
+    names = [_native.counter_name(k, "bn254", g) for k in ("bucket_madd_rows", "masked_add")
+             for g in ("g1", "g2")] + ["ntt_pass", "field_ew"]
+    return {k: launches.get(k, 0) for k in names}
+
+
+def phase_dist_prove(key_path: str, vk, single, smi: str) -> tuple[dict, dict]:
+    """The distributed prove (`DistPlaneProver`) of setup_full's key, saved
+    by prove_setup and loaded by every rank on the CPU, of its circuit from
+    random.Random(2024), in a world of each of DIST_RANKS ranks on the card
+    (`run_ranks`: NCCL at one rank; gloo at two, both on the one card, the
+    exchanges staged through the host), after a warm prove. Gate: every
+    rank's proof equals prove_setup's and verifies, and every rank launched
+    K1-K4. Per rank: the stage times (each ending in a synchronise; the
+    window sums split into accumulate, exchange, fold, gather), the bytes
+    it sent in each kind of collective, its peak device memory and its
+    launches. -> (phase info, {ranks: the launches of rank 0 of that world})."""
+    from snark_tpu_torch.fields.params import BN254
+    from snark_tpu_torch.groth16 import Groth16
+    from snark_tpu_torch.parallel.launch import run_ranks
+    from snark_tpu_torch.parallel.plane_dist import prove_from_file
+
+    cfg = setup_config(FULL_N, False)
+    g16 = Groth16(BN254, device="cpu")
+    pvk = g16.process_vk(vk)
+    worlds, launches = [], {}
+    for ranks in DIST_RANKS:
+        t = time.time()
+        res = run_ranks(prove_from_file, ranks, "cuda", key_path, cfg["circuit"], "cuda", "tp",
+                        cfg["prove_seed"], None, None, True, timeout_s=DIST_TIMEOUT_S)
+        wall = time.time() - t
+        for out in res:
+            if out["proof"] != single:
+                raise AssertionError(f"rank {out['rank']} of {ranks} proves another proof")
+            if not g16.verify_with_processed_vk(pvk, cfg["public"], out["proof"]):
+                raise AssertionError(f"rank {out['rank']} of {ranks}: the proof does not verify")
+            missing = [k for k, v in path_launches(out["launches"]).items() if not v]
+            if missing:
+                raise AssertionError(f"rank {out['rank']} of {ranks} did not launch {missing}")
+        launches[ranks] = res[0]["launches"]
+        worlds.append({
+            "ranks": ranks, "backend": res[0]["backend"], "wall_s": round(wall, 3),
+            "n1": res[0]["n1"], "n2": res[0]["n2"], "c": res[0]["c"],
+            "block_path": res[0]["block_path"], "equal_to_single": True, "verifies": True,
+            "per_rank": [{
+                "rank": out["rank"], "device": out["device"],
+                "stage_ms": {k: round(v, 3) for k, v in out["stage_ms"].items()},
+                "total_ms": round(sum(out["stage_ms"].values()), 3),
+                "sent_bytes": out["sent_bytes"], "load_ms": round(out["load_ms"], 3),
+                "init_ms": round(out["init_ms"], 3),
+                "max_memory_allocated": out["max_memory_allocated"],
+                "launches": path_launches(out["launches"]),
+            } for out in res],
+        })
+    return {"nvidia_smi": smi, "circuit": f"MulChain({FULL_SEED}, {FULL_N})",
+            "prove_rng": f"random.Random({cfg['prove_seed']})", "worlds": worlds}, launches
+
+
+def phase_batch_dp(run, batch_proofs: list, key_dir: str, smi: str) -> tuple[dict, dict]:
+    """`BatchProver` on a (dp, tp) = BATCH_DP_MESH mesh of two ranks on the
+    card over the first BATCH_DP_PROOFS circuits and (r, s) pairs of
+    batch_config5, under its key (saved without its query arrays, loaded
+    by each rank on the card). Gate: every rank returns every proof, each
+    equal to the one-device batch's; K18 launched 5 times a proof of a
+    rank's share. -> (phase info, rank 0's launches)."""
+    import dataclasses
+
+    from snark_tpu_torch import _native
+    from snark_tpu_torch.parallel.batch import batch_from_file
+    from snark_tpu_torch.parallel.launch import run_ranks
+
+    path = os.path.join(key_dir, "pk_config5.npz")
+    t = time.time()
+    dataclasses.replace(run.pk, queries={}, file_queries=frozenset(), path=None).save(path)
+    save_s = time.time() - t
+    B = BATCH_DP_PROOFS
+    ranks = BATCH_DP_MESH[0] * BATCH_DP_MESH[1]
+    t = time.time()
+    res = run_ranks(batch_from_file, ranks, "cuda", path, run.circuits[:B], run.rs[:B],
+                    BATCH_DP_MESH, ("dp", "tp"), "dp", "cuda", False, timeout_s=DIST_TIMEOUT_S)
+    wall = time.time() - t
+    k18 = [_native.counter_name("horner_combine", "bn254", g) for g in ("g1", "g2")]
+    for out in res:
+        if out["proofs"] != batch_proofs[:B]:
+            raise AssertionError(f"rank {out['rank']}'s batch differs from the one-device batch")
+        share = len(out["share"])
+        if [out["launches"].get(k, 0) for k in k18] != [4 * share, share]:
+            raise AssertionError(f"rank {out['rank']} launched K18 {out['launches']}")
+    return {"nvidia_smi": smi, "mesh": dict(zip(("dp", "tp"), BATCH_DP_MESH)), "proofs": B,
+            "backend": res[0]["backend"], "key_save_seconds": round(save_s, 3),
+            "wall_s": round(wall, 3), "equal_to_batch_config5": True,
+            "per_rank": [{
+                "rank": out["rank"], "share": out["share"],
+                "stage_ms": {k: round(v, 3) for k, v in out["stage_ms"].items()},
+                "device_ms": {k: round(v, 3) for k, v in out["device_ms"].items()},
+                "sent_bytes": out["sent_bytes"],
+                "max_memory_allocated": out["max_memory_allocated"],
+                "k18_launches": {k: out["launches"].get(k, 0) for k in k18},
+            } for out in res]}, res[0]["launches"]
+
+
+def phase_config4(smi: str) -> dict:
+    """`run_configs` configuration 4 at CONFIG4_LOG_N in a world of one rank
+    (NCCL) and a world of two on the card (gloo): its line, whose results
+    must be equal."""
+    from snark_tpu_torch import run_configs as RC
+
+    rec = RC.config4(CONFIG4_LOG_N, 2, "cuda")
+    if rec["equal"] is not True or (rec["backend_1dev"], rec["backend"]) != ("nccl", "gloo"):
+        raise AssertionError(f"configuration 4: {rec}")
+    return {"nvidia_smi": smi, **rec}
+
+
+def phase_dryrun(smi: str) -> dict:
+    """`dryrun_multichip(2, "cuda")` at its default log_n of 10: the
+    distributed prove on two ranks verifies on every rank, then the
+    dp-sharded h pipeline."""
+    from snark_tpu_torch.dryrun import dryrun_multichip
+
+    rec = dryrun_multichip(2, "cuda")
+    if rec["verified"] is not True:
+        raise AssertionError(f"the dry run: {rec}")
+    return {"nvidia_smi": smi, **rec}
 
 
 def phase_configs(device) -> dict:
@@ -1928,20 +2122,41 @@ def main() -> int:
     t0 = time.time()
     info_s, pk_s, vk_s, setup_launches = phase_setup_full(key.curve, FULL_N, device, smi)
     phase_line("setup_full", t0, **info_s)
+    key_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     t0 = time.time()
-    phase_line("prove_setup", t0, **phase_prove_setup(
-        pk_s, vk_s, key.curve, device, info["stage_ms"], save=True))
-    del pk_s, vk_s
+    info_ps, single = phase_prove_setup(pk_s, vk_s, key.curve, device, info["stage_ms"],
+                                        save_dir=key_dir.name)
+    phase_line("prove_setup", t0, **info_ps)
+    del pk_s
     torch.cuda.empty_cache()
 
     t0 = time.time()
-    info_c5, batch_launches = phase_batch_config5(device, smi)
+    info_d, dist_launches = phase_dist_prove(os.path.join(key_dir.name, "pk.npz"), vk_s, single,
+                                             smi)
+    phase_line("dist_prove", t0, **info_d)
+    del vk_s
+
+    t0 = time.time()
+    info_c5, batch_launches, run_c5, proofs_c5 = phase_batch_config5(device, smi)
     phase_line("batch_config5", t0, **info_c5)
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    info_bd, batch_dp_launches = phase_batch_dp(run_c5, proofs_c5, key_dir.name, smi)
+    phase_line("batch_dp", t0, **info_bd)
+    del run_c5, proofs_c5
+    key_dir.cleanup()
     torch.cuda.empty_cache()
 
     t0 = time.time()
     phase_line("configs", t0, **phase_configs(device))
     torch.cuda.empty_cache()
+
+    t0 = time.time()
+    phase_line("config4", t0, **phase_config4(smi))
+
+    t0 = time.time()
+    phase_line("dryrun", t0, **phase_dryrun(smi))
 
     t0 = time.time()
     info_b, bench_launches = phase_msm_bench(inputs, smi)
@@ -1991,7 +2206,7 @@ def main() -> int:
     phase_line("setup_full_bls", t0, **info_sb)
     t0 = time.time()
     phase_line("prove_setup_bls", t0, **phase_prove_setup(
-        pk_sb, vk_sb, BLS12_381, device, info_bls["stage_ms"], save=False, config3=True))
+        pk_sb, vk_sb, BLS12_381, device, info_bls["stage_ms"], save_dir=None, config3=True)[0])
     del pk_sb, vk_sb, z_bls
     torch.cuda.empty_cache()
 
@@ -2031,10 +2246,18 @@ def main() -> int:
             if row["launches"] is None:
                 path = field_launches if row["name"].startswith("mont_mul16") else counts
                 row["launches"] = path.get(row["name"], 0)
-    # K18's launches in configuration 5's batch (BN254), beside the bench's
+    # K18's launches in configuration 5's batch (BN254), beside the bench's,
+    # and a rank's in batch_dp
     for row in msm_rows + bls_msm_rows:
         if row["name"].startswith("horner_combine"):
             row["batch_launches"] = batch_launches.get(row["name"], 0)
+            row["batch_dp_launches"] = batch_dp_launches.get(row["name"], 0)
+    # K1-K4's launches on rank 0 of the two-rank and the one-rank
+    # distributed prove (BN254)
+    for row in rows:
+        if row["name"] in path_launches({}):
+            row["dist_launches"] = dist_launches[2].get(row["name"], 0)
+            row["dist_one_rank_launches"] = dist_launches[1].get(row["name"], 0)
     # K1's, K4's and K7's launches in the setups, beside those of their paths
     for group, counts in ((rows + msm_rows, setup_launches),
                           (bls_rows + bls_msm_rows, setup_launches_bls)):

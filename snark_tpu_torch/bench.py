@@ -111,9 +111,9 @@ def stage_ms(plan: PlaneMsm, inp: BenchInputs) -> dict:
         t = now
 
     tick("start")
-    acc = plan._accumulate(inp.table, inp.digits.t().contiguous())
+    acc = plan.accumulate(inp.table, inp.digits.t().contiguous())
     tick("accumulate")
-    sums = plan._fold(acc)
+    sums = plan.fold_block(acc, 0, plan.W)
     tick("fold")
     plan.combine(sums)
     tick("combine")

@@ -271,6 +271,26 @@ def synthesize_witness(circuit, curve: CurveParams) -> list[int]:
     return cs.full_assignment()
 
 
+def prove_randomness(curve: CurveParams, rng: random.Random | None, r: int | None,
+                     s: int | None, deterministic: bool) -> tuple[int, int]:
+    """(r, s) of a prove, as the reference's `prove` takes them: r, then s,
+    drawn from rng where they are not given. Without an rng and without
+    (r, s) the proof would have no zero knowledge (r = s = 0), so that
+    raises unless the caller passes deterministic=True."""
+    if rng is None and r is None and s is None and not deterministic:
+        raise ValueError(
+            "prove() without an rng (or explicit r/s) produces a proof "
+            "with ZERO zero-knowledge; pass rng=secure_rng(), explicit "
+            "r/s, or deterministic=True to opt in"
+        )
+    host_fr = Fp(curve.fr)
+    if r is None:
+        r = host_fr.rand(rng) if rng is not None else 0
+    if s is None:
+        s = host_fr.rand(rng) if rng is not None else 0
+    return r, s
+
+
 def assemble_proof(g16, pk, A_sum, B_sum, B1_sum, L_sum, H_sum, r, s) -> Proof:
     """Host tail of the prover: fold the five MSM results into (A, B, C)."""
     g1, g2 = g16.hg1, g16.hg2
@@ -363,23 +383,24 @@ class Groth16:
         tick("h")
         return z_std, h_std
 
-    def msm_terms(self, pk: ProvingKey, z_std: torch.Tensor, h_std: torch.Tensor):
+    def msm_terms(self, pk: ProvingKey, z_std: torch.Tensor, h_std: torch.Tensor | None):
         """The five MSMs of a proof, the signed c-bit digits of z and h
         made: [(name, plan, table, digits)] for A, B (G2), B1, L (z past
-        the instance) and H."""
+        the instance) and H (left out when h_std is None)."""
         nbits = self.curve.fr.num_bits
         c = pick_window_plane_signed(z_std.shape[0])
         z_digits = signed_digits(z_std, c, nbits)
-        h_digits = signed_digits(h_std, c, nbits)
         g1, g2 = self.msm_plan(c, "g1"), self.msm_plan(c, "g2")
         ni = pk.num_instance
-        return [
+        terms = [
             ("A", g1, pk.a_tbl, z_digits),
             ("B", g2, pk.b_g2_tbl, z_digits),
             ("B1", g1, pk.b_g1_tbl, z_digits),
             ("L", g1, pk.l_tbl, z_digits[ni:]),
-            ("H", g1, pk.h_tbl, h_digits),
         ]
+        if h_std is not None:
+            terms.append(("H", g1, pk.h_tbl, signed_digits(h_std, c, nbits)))
+        return terms
 
     def msm_sums(self, pk: ProvingKey, z_std: torch.Tensor, h_std: torch.Tensor, tick):
         """Stages 4-5: the five MSMs, each combined on the host -> (affine
@@ -422,17 +443,7 @@ class Groth16:
         have no zero knowledge (r = s = 0), so that raises unless the
         caller passes deterministic=True. Synthesis runs with
         construct_matrices=False: the key already holds the matrices."""
-        if rng is None and r is None and s is None and not deterministic:
-            raise ValueError(
-                "prove() without an rng (or explicit r/s) produces a proof "
-                "with ZERO zero-knowledge; pass rng=secure_rng(), explicit "
-                "r/s, or deterministic=True to opt in"
-            )
-        host_fr = Fp(self.curve.fr)
-        if r is None:
-            r = host_fr.rand(rng) if rng is not None else 0
-        if s is None:
-            s = host_fr.rand(rng) if rng is not None else 0
+        r, s = prove_randomness(self.curve, rng, r, s, deterministic)
         t0 = time.perf_counter()
         z = synthesize_witness(circuit, self.curve)
         synthesize_ms = (time.perf_counter() - t0) * 1e3

@@ -64,6 +64,10 @@ class PaddedCsr:
         return PaddedCsr(torch.as_tensor(cols.reshape(num_rows, width), device=device),
                          coeffs, num_rows)
 
+    def row_block(self, lo: int, hi: int, device) -> "PaddedCsr":
+        """Rows [lo, hi) on `device`: a rank's share of the matvec."""
+        return PaddedCsr(self.cols[lo:hi].to(device), self.coeffs[lo:hi].to(device), hi - lo)
+
     def to_reference(self) -> tuple[np.ndarray, np.ndarray]:
         """-> the reference's arrays (the inverse of `from_reference`): cols
         (rows, width) int32 and coeffs (rows, width, 16) uint32, each u32

@@ -216,8 +216,9 @@ class PlaneMsm:
     def uses_affine(self, n: int) -> bool:
         return self.affine and n >= AFFINE_MIN_MEAN * self.nb
 
-    def _accumulate(self, table, digits_t):
-        """Phases 1-3 -> (lanes, 3, K, L) bucket accumulators."""
+    def accumulate(self, table, digits_t):
+        """Phases 1-3: table (N, row_bytes) rows, digits_t (W, N) -> (W·2^cb,
+        3, K, L) bucket accumulators."""
         W, n = digits_t.shape
         perm, start, length = self._buckets(digits_t)
         mean = max(1, n // self.nb)
@@ -231,17 +232,26 @@ class PlaneMsm:
         return self.run_scan(table, perm, lane_base, start, length, mean)
 
     # -- phase 4: replica collapse and the double suffix scan ------------------
-    def _fold(self, acc):
-        W, nb, K, L = self.W, self.nb, self.K, self.L
+    def fold_block(self, acc, win0: int, num_win: int):
+        """Phase 4 on a block of whole windows: acc (num_win·2^cb, 3, K, L),
+        the bucket accumulators of windows [win0, win0 + num_win) ->
+        (num_win, 3, K, L) window totals. The collapse and scan masks are
+        those of the block's windows (the last window's differ, as its
+        replica count does), so the distributed MSM can fold its share of
+        the windows; the whole fold is fold_block(acc, 0, W)."""
+        nb, K, L = self.nb, self.K, self.L
         dev = acc.device
+        lanes = slice(win0 * nb, (win0 + num_win) * nb)
+        if acc.shape[0] != num_win * nb or win0 < 0 or win0 + num_win > self.W:
+            raise ValueError(f"{acc.shape[0]} lanes for windows [{win0}, {win0 + num_win})")
 
         def step(a, stride, mask):
-            rolled = torch.roll(a.view(W, nb, 3, K, L), -stride, dims=1)
+            rolled = torch.roll(a.view(num_win, nb, 3, K, L), -stride, dims=1)
             return masked_add(a, rolled.reshape(a.shape).contiguous(), mask, self.group, self.curve)
 
         for j in range(self.max_r):
-            acc = step(acc, 1 << j, torch.as_tensor(self.collapse[j], device=dev))
-        scan = [torch.as_tensor(m, device=dev) for m in self.scan]
+            acc = step(acc, 1 << j, torch.as_tensor(self.collapse[j][lanes], device=dev))
+        scan = [torch.as_tensor(m[lanes], device=dev) for m in self.scan]
         # S_b = sum_{j >= b} B_j, then a second suffix scan. Signed: bucket
         # b holds |digit| = b + 1, and sum_{b >= 0} S_b = sum (b + 1)·B_b.
         # Unsigned: bucket b holds digit b; S_0 is emptied first, so the
@@ -249,12 +259,12 @@ class PlaneMsm:
         for k in range(self.cb):
             acc = step(acc, 1 << k, scan[k])
         if not self.signed:
-            acc = acc.view(W, nb, 3, K, L).clone()
-            acc[:, 0] = identity(W, self.group, dev, self.curve)
-            acc = acc.view(W * nb, 3, K, L)
+            acc = acc.view(num_win, nb, 3, K, L).clone()
+            acc[:, 0] = identity(num_win, self.group, dev, self.curve)
+            acc = acc.view(num_win * nb, 3, K, L)
         for k in range(self.cb):
             acc = step(acc, 1 << k, scan[k])
-        return acc.view(W, nb, 3, K, L)[:, 0].contiguous()
+        return acc.view(num_win, nb, 3, K, L)[:, 0].contiguous()
 
     # -- public API --------------------------------------------------------------
     def window_sums(self, table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
@@ -265,7 +275,7 @@ class PlaneMsm:
             raise ValueError(f"digits have {W} windows, plan has {self.W}")
         if table.shape[0] != n:
             raise ValueError(f"table has {table.shape[0]} rows for {n} digits")
-        return self._fold(self._accumulate(table, digits.t().contiguous()))
+        return self.fold_block(self.accumulate(table, digits.t().contiguous()), 0, self.W)
 
     def combine(self, sums: torch.Tensor) -> torch.Tensor:
         """Horner over the window totals on the device: c doublings and one

@@ -12,7 +12,9 @@ K3 runs k consecutive radix-2 stages of a transform in one launch, the
 array cut into tiles of whole sub-transforms in shared memory
 (`pass_geometry`, `pass_maps`; `ntt_pass_emulate` runs plain butterflies
 over the kernel's own index maps). A transform of 2^20 is two launches
-(`pass_split`). The h pipeline keeps the reference's permutation-free
+(`pass_split`). `ntt_rows` runs B independent transforms of the rows of
+one vector as the first log m stages of one (the distributed NTT's local
+step; `NttPlan.fft` and `ifft` are its one-row case). The h pipeline keeps the reference's permutation-free
 order: inverse transforms are DIF (natural in, bit-reversed out), forward
 transforms DIT (bit-reversed in, natural out), and the per-coefficient
 coset scale vectors are stored pre-permuted. K4's products of the
@@ -410,6 +412,47 @@ def ntt_stage(
     return ntt_pass(x, tw, log_half, 1, dif, log_half + tw_stride.bit_length() - 1, field=field)
 
 
+def ntt_rows(x: torch.Tensor, m: int, tw: torch.Tensor, scale: torch.Tensor | None = None,
+             field: Field = FR) -> torch.Tensor:
+    """B = len(x) / m independent length-m transforms, row b being
+    x[b·m : (b + 1)·m], natural order in and out. Each row is bit-reversed,
+    then K3 runs stages [0, log m) over the whole B·m vector (`pass_split`
+    of log m) with tw_log = log m − 1, `tw` holding the m/2 powers of the
+    rows' root. Stage s pairs elements inside a block of 2^(s + 1) and reads
+    tw[(i mod 2^s) << (tw_log − s)], which depends only on the position in
+    the row, so below log m no butterfly crosses a row and the B·m vector
+    is B transforms side by side. `scale` (L,) multiplies every output (a
+    broadcast K4 mul): 1/m for an inverse transform."""
+    x, log_m = _rows_bit_reversed(x, m, field)
+    s0 = 0
+    for k in pass_split(log_m):
+        x = ntt_pass(x, tw, s0, k, dif=False, tw_log=log_m - 1, field=field)
+        s0 += k
+    return x if scale is None else field_ew("mul", x, scale, field=field)
+
+
+def ntt_rows_plain(x: torch.Tensor, m: int, tw: torch.Tensor, scale: torch.Tensor | None = None,
+                   field: Field = FR) -> torch.Tensor:
+    """Plain version of `ntt_rows`: the same passes through `ntt_pass_plain`
+    and the scale through `field_ew_plain`."""
+    x, log_m = _rows_bit_reversed(x, m, field)
+    s0 = 0
+    for k in pass_split(log_m):
+        x = ntt_pass_plain(x, tw, s0, k, dif=False, tw_log=log_m - 1, field=field)
+        s0 += k
+    return x if scale is None else field_ew_plain("mul", x, scale, field=field)
+
+
+def _rows_bit_reversed(x: torch.Tensor, m: int, field: Field) -> tuple[torch.Tensor, int]:
+    """Each row of m elements of x in bit-reversed order -> (that, log m)."""
+    n = _check_elems(x, "x", limbs=field.limbs)
+    if m < 2 or m & (m - 1) or n % m:
+        raise ValueError(f"{n} elements are not rows of a power of two m = {m}")
+    pos = torch.arange(n, device=x.device)
+    rev = torch.as_tensor(bit_reverse_indices(m), device=x.device)
+    return x[pos - pos % m + rev[pos % m]], m.bit_length() - 1
+
+
 # ---------------------------------------------------------------------------
 # the plan
 # ---------------------------------------------------------------------------
@@ -455,7 +498,6 @@ class NttPlan:
         self.coset_unscale_std = f.tensor(unscale, device, mont=False)
         z_coset = (pow(g, n, p) - 1) % p
         self.z_coset_inv = f.const(pow(z_coset, -1, p), device)
-        self.rev = torch.as_tensor(rev, device=device)
         s0, self.passes = 0, []  # (s0, k) of each pass, DIT order
         for k in pass_split(self.log_n):
             self.passes.append((s0, k))
@@ -520,9 +562,8 @@ class NttPlan:
 
     # natural-order transforms (tests against the reference vectors)
     def fft(self, x: torch.Tensor) -> torch.Tensor:
-        return self.dit(x[self.rev].contiguous(), self.fwd_tw)
+        return ntt_rows(x, self.n, self.fwd_tw, field=self.field)
 
     def ifft(self, x: torch.Tensor) -> torch.Tensor:
         f = self.field
-        y = self.dit(x[self.rev].contiguous(), self.inv_tw)
-        return field_ew("mul", y, f.const(pow(self.n, -1, f.p), y.device), field=f)
+        return ntt_rows(x, self.n, self.inv_tw, f.const(pow(self.n, -1, f.p), x.device), f)

@@ -1,9 +1,13 @@
-"""Proving across many proofs: batched proving under one key (`BatchProver`).
-
-The port's counterpart of the JAX package's `parallel/` so far holds its
-batched prover alone; the distributed MSM, NTT and prover follow.
+"""Proving across many proofs and many ranks: batched proving under one key
+(`BatchProver`, its batch split over a mesh axis where one is given) and
+distributed proving over `torch.distributed` (`parallel/plane_dist.py`:
+`DistPlaneMsm`, `DistPlaneNtt`, `DistPlaneProver`), on meshes of ranks
+(`parallel/mesh.py`) that `parallel/launch.py` `run_ranks` starts.
 """
 
 from .batch import BatchProver, BatchRun
+from .mesh import Mesh, local_mesh, make_mesh
+from .plane_dist import DistPlaneMsm, DistPlaneNtt, DistPlaneProver
 
-__all__ = ["BatchProver", "BatchRun"]
+__all__ = ["BatchProver", "BatchRun", "DistPlaneMsm", "DistPlaneNtt", "DistPlaneProver", "Mesh",
+           "local_mesh", "make_mesh"]

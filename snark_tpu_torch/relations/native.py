@@ -29,7 +29,8 @@ CXX = "g++"
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 LIB_NAME = "lc_engine.so"
 
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()  # guards _LIB
+_BUILD_LOCK = threading.Lock()  # one build at a time in this process
 _LIB = None
 
 
@@ -52,8 +53,14 @@ def source_hash() -> str:
 
 def build() -> EngineBuild:
     """Compile the engine unless this tree's library exists. Writes to a
-    temporary name and renames, so a process that dies mid-build leaves no
-    half-written library behind. Raises RuntimeError with g++'s output."""
+    temporary name (this process's) and renames, so a process that dies
+    mid-build leaves no half-written library behind; threads of one
+    process build one at a time. Raises RuntimeError with g++'s output."""
+    with _BUILD_LOCK:
+        return _build()
+
+
+def _build() -> EngineBuild:
     out_dir = os.path.join(BUILD_DIR, f"lc_engine-{source_hash()}")
     lib = os.path.join(out_dir, LIB_NAME)
     if os.path.isfile(lib):

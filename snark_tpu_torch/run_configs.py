@@ -2,7 +2,8 @@
 on the port:
 
     python -m snark_tpu_torch.run_configs [CONFIG ...] [--batch-prover]
-        [--batch B] [--log-n N] [--config3-log-n N] [--device DEVICE]
+        [--batch B] [--log-n N] [--config3-log-n N] [--config4-log-n N]
+        [--ranks R] [--device DEVICE]
 
 Each configuration prints one JSON line with the reference's keys (and
 the device it ran on):
@@ -13,7 +14,17 @@ the device it ran on):
      random.Random(0), a warm prove from random.Random(5), the timed prove
      from random.Random(1), verify with [7].
   3: the same over BLS12-381 at n = 2^config3-log-n − 64 (default 2^20).
-  4: distributed proving has no port yet: asking for it is an error.
+  4: the distributed MSM and NTT (`parallel/plane_dist.py`): BN254 G1
+     window sums (`DistPlaneMsm`) of 2^config4-log-n points (a pool of 64
+     points tiled, scalars from random.Random(3), signed c from
+     `pick_window_plane_signed(max(n / ranks, 256))`) and the six-step
+     `DistPlaneNtt.fft` of as many coefficients (drawn next from the same
+     rng), each timed (3 runs after a warm one) in a world of one rank and
+     in a world of --ranks ranks (processes spawned on this host by
+     `parallel/launch.py`, each world's backend from its layout: on one
+     card NCCL at one rank, gloo at two), their results equal. Scaling
+     efficiency = t1 / (ranks · t_ranks). It spawns its own worlds, so it
+     does not run under torchrun.
   5: batched proving throughput: B proofs (--batch, default 256) of
      MulChain(s, 2^log-n − 64, batch=True) for s < B (--log-n, default 18)
      under one key set up for the first from random.Random(0). The (r, s)
@@ -41,21 +52,24 @@ import sys
 import time
 from dataclasses import dataclass
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import _native
 from .fields.host import Fp
+from .fields.limbs import FR
 from .fields.params import BLS12_381, BN254, CurveParams
 from .groth16 import Groth16, Proof, ProvingKey, VerifyingKey, synthesize_witness
 from .models import MulChainCircuit
-from .parallel import BatchProver
+from .ops.curve import limbs_to_points, pack_rows_u8
+from .ops.curve_host import host_g1
+from .ops.msm import pick_window_plane_signed, signed_digits
+from .parallel import BatchProver, DistPlaneMsm, DistPlaneNtt, local_mesh
+from .parallel.launch import run_ranks
 from .relations import new_ref
 
-CONFIG4_MESSAGE = (
-    "configuration 4 (distributed MSM and NTT over a device mesh) has no port yet: "
-    "the distributed slice (parallel/plane_dist.py, dist_msm.py, dist_ntt.py, mesh.py) "
-    "comes next"
-)
+CONFIG4_ITERS = 3
 
 
 def device_kind(device) -> str:
@@ -108,6 +122,85 @@ def config2(device="cuda") -> dict:
 
 def config3(log_n: int = 20, device="cuda") -> dict:
     return config_prove(3, BLS12_381, log_n, device)
+
+
+def config4_rank(log_n: int, ranks: int, device) -> dict:
+    """One rank of configuration 4 in a world of its own: the inputs made on
+    every rank from the seed (c and the six-step split chosen for `ranks`
+    ranks, so that the one-rank and the `ranks`-rank worlds compute the
+    same), the MSM and the NTT timed on the mesh of the world. -> this
+    rank's seconds, rank 0's window totals and this rank's transform shard
+    (CPU)."""
+    world = dist.get_world_size()
+    n = 1 << log_n
+    host_fr, hc = Fp(BN254.fr), host_g1(BN254)
+    rng = random.Random(3)
+    pool = [hc.scalar_mul(hc.generator, k + 1) for k in range(64)]
+    rows = np.tile(pack_rows_u8(pool), (n // 64, 1))
+    scalars = [host_fr.rand(rng) for _ in range(n)]
+    c = pick_window_plane_signed(max(n // ranks, 256))
+    digits = signed_digits(FR.tensor(scalars, "cpu", mont=False), c, BN254.fr.num_bits).numpy()
+    coeffs = [host_fr.rand(rng) for _ in range(n)]
+    n1 = 1 << (log_n // 2)
+    while n1 % ranks or (n // n1) % ranks:
+        n1 *= 2
+    mesh = local_mesh("tp", device=device)
+
+    def timed(run):
+        """-> (mean seconds of CONFIG4_ITERS runs after a warm one, the result)."""
+        y = run()
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+        t0 = time.perf_counter()
+        for _ in range(CONFIG4_ITERS):
+            y = run()
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+        return (time.perf_counter() - t0) / CONFIG4_ITERS, y
+
+    dm = DistPlaneMsm(c, mesh, "tp")
+    tbl, dig = dm.shard_table(rows), dm.shard_table(digits)
+    msm_s, sums = timed(lambda: dm.window_sums(tbl, dig))
+    dn = DistPlaneNtt(n1, n // n1, mesh, "tp")
+    i, nl = mesh.index("tp"), n // world
+    x = FR.tensor(coeffs[i * nl : (i + 1) * nl], mesh.device)
+    ntt_s, ev = timed(lambda: dn.fft(x))
+    res = {"rank": dist.get_rank(), "backend": mesh.backend, "window_bits": c, "n1": n1,
+           "block_path": dm.block_path, "msm_s": msm_s, "ntt_s": ntt_s, "ntt": ev.cpu(),
+           "msm": sums.cpu() if i == 0 else None}
+    if mesh.device.type == "cuda":
+        res["max_memory_allocated"] = torch.cuda.max_memory_allocated(mesh.device)
+    return res
+
+
+def config4(log_n: int = 12, ranks: int = 2, device="cuda") -> dict:
+    """Configuration 4: a world of one rank, then a world of `ranks` ranks
+    (each spawned on this host, its backend from the layout), the second's
+    results equal to the first's."""
+    t0 = time.time()
+    one = run_ranks(config4_rank, 1, device, log_n, ranks, device)[0]
+    per_rank = run_ranks(config4_rank, ranks, device, log_n, ranks, device)
+    head = per_rank[0]
+    msm_equal = limbs_to_points(one["msm"]) == limbs_to_points(head["msm"])
+    ntt_equal = torch.equal(one["ntt"], torch.cat([r["ntt"] for r in per_rank]))
+    if not (msm_equal and ntt_equal):
+        raise RuntimeError(f"configuration 4: the {ranks}-rank results differ from one rank's")
+    t1, tn = one["msm_s"], max(r["msm_s"] for r in per_rank)
+    s1, sn = one["ntt_s"], max(r["ntt_s"] for r in per_rank)
+    rec = {"config": 4, "desc": "distributed plane MSM + six-step NTT over a mesh of ranks",
+           "n": 1 << log_n, "devices": ranks, "ranks": ranks, "backend": head["backend"],
+           "backend_1dev": one["backend"],
+           "cards": torch.cuda.device_count() if torch.device(device).type == "cuda" else 0,
+           "window_bits": head["window_bits"], "block_path": head["block_path"],
+           "msm_1dev_s": round(t1, 6), "msm_ndev_s": round(tn, 6),
+           "msm_scaling_eff": round(t1 / (ranks * tn), 4),
+           "ntt_n1": head["n1"], "ntt_1dev_s": round(s1, 6), "ntt_ndev_s": round(sn, 6),
+           "ntt_scaling_eff": round(s1 / (ranks * sn), 4), "equal": True,
+           "wall_s": round(time.time() - t0, 3), "device": device_kind(device)}
+    if "max_memory_allocated" in head:
+        rec["max_memory_allocated_1dev"] = one["max_memory_allocated"]
+        rec["max_memory_allocated"] = [r["max_memory_allocated"] for r in per_rank]
+    return rec
 
 
 @dataclass
@@ -213,14 +306,15 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=256, help="configuration 5's proofs")
     ap.add_argument("--log-n", type=int, default=18, help="configuration 5's log2 domain")
     ap.add_argument("--config3-log-n", type=int, default=20)
+    ap.add_argument("--config4-log-n", type=int, default=12)
+    ap.add_argument("--ranks", type=int, default=2, help="configuration 4's world size")
     ap.add_argument("--batch-prover", action="store_true",
                     help="configuration 5 through BatchProver")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if 4 in args.configs:
-        ap.error(CONFIG4_MESSAGE)
-    if not set(args.configs) <= {1, 2, 3, 5}:
-        ap.error(f"no configuration {sorted(set(args.configs) - {1, 2, 3, 5})}: choose from 1, 2, 3, 5")
+    if not set(args.configs) <= {1, 2, 3, 4, 5}:
+        ap.error(f"no configuration {sorted(set(args.configs) - {1, 2, 3, 4, 5})}: "
+                 "choose from 1 to 5")
     for config in args.configs:
         if config == 1:
             rec = config1()
@@ -228,6 +322,8 @@ def main(argv=None) -> int:
             rec = config2(args.device)
         elif config == 3:
             rec = config3(args.config3_log_n, args.device)
+        elif config == 4:
+            rec = config4(args.config4_log_n, args.ranks, args.device)
         else:
             rec = config5(args.batch, args.log_n, args.batch_prover, args.device)
         print(json.dumps(rec), flush=True)

@@ -138,13 +138,15 @@ def test_key_assignment_mismatch_raises():
 
 def test_run_configs_config1_and_refusals(capsys):
     """Configuration 1 synthesizes and satisfies the 2^10 chain; asking
-    for configuration 4, which has no port yet, exits with its reason."""
+    for a configuration the runner does not have exits with its reason
+    before any runs (configuration 4, refused until the distributed slice,
+    runs in `tests/test_torch_dryrun.py`)."""
     rec = RC.config1()
     assert rec["config"] == 1 and rec["satisfied"] is True and rec["constraints"] == 1 << 10
     assert RC.main(["1"]) == 0
     assert json.loads(capsys.readouterr().out)["satisfied"] is True
-    with pytest.raises(SystemExit) as exit_4:
-        RC.main(["1", "4"])
-    assert exit_4.value.code == 2
+    with pytest.raises(SystemExit) as exit_6:
+        RC.main(["1", "6"])
+    assert exit_6.value.code == 2
     err = capsys.readouterr()
-    assert "configuration 4" in err.err and "no port yet" in err.err and err.out == ""
+    assert "no configuration [6]" in err.err and err.out == ""

@@ -237,7 +237,8 @@ def test_port_imports_no_jax():
                 "utils/rng.py", "utils/timing.py", "fields/__init__.py", "snark/__init__.py",
                 "snark/api.py", "snark/universal.py", "snark/serialize.py",
                 "groth16/groth16.py", "parallel/__init__.py", "parallel/batch.py",
-                "run_configs.py"):
+                "run_configs.py", "parallel/mesh.py", "parallel/launch.py",
+                "parallel/plane_dist.py", "dryrun.py"):
         assert os.path.join("snark_tpu_torch", mod) in walked, mod
     bad = []
     for path in _port_sources():

@@ -113,6 +113,22 @@ def test_ntt_pass_matches_plain(cuda, field, log_n):
     assert torch.equal(N.from_mont(plan.h_from_evals(x, b, c), field), h)
 
 
+@pytest.mark.parametrize("log_n,m", [(18, 512), (17, 512), (9, 32)])
+def test_ntt_rows_matches_plain(cuda, log_n, m):
+    """K3 as the six-step NTT's batched row transforms (`ntt_rows`, tw_log =
+    log m − 1) at a rank's shard of the distributed 2^18 prove on one rank
+    and on two and of the 2^10 dry run, forward and inverse with its 1/m
+    scale, bit for bit against the plain passes."""
+    x = rand_elems(FR, 1 << log_n, 7, cuda)
+    plan = N.NttPlan(m, cuda)
+    inv_m = FR.const(pow(m, -1, R), cuda)
+    for tw, scale in ((plan.fwd_tw, None), (plan.inv_tw, inv_m)):
+        _native.reset_launches()
+        got = N.ntt_rows(x, m, tw, scale)
+        assert _native.LAUNCHES[_native.counter_name("ntt_pass", "bn254")] == len(plan.passes)
+        assert torch.equal(got, N.ntt_rows_plain(x, m, tw, scale))
+
+
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_curve_kernels_match_plain(cuda, group):
     hc = HOSTS[group]
@@ -666,3 +682,48 @@ def test_setup_on_card_equals_jax_keys(cuda, tmp_path):
         with np.load(os.path.join(VECTORS, name)) as want, np.load(path) as got:
             for k in want.files:
                 assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), (name, k)
+
+
+# ---------------------------------------------------------------------------
+# distributed proving: worlds of ranks on the card (`run_ranks`)
+# ---------------------------------------------------------------------------
+
+DIST_FIXTURES = {  # vector, key (None: set up from the vector's seed), circuit, curve
+    "mulchain8": ("proof_bn254.json", None, MulChainCircuit(seed=11, n=8, batch=False), BN254),
+    "mulchain1023": ("torch_proof_bn254_mulchain1023.json", "torch_pk_bn254_mulchain1023.npz",
+                     MulChainCircuit(seed=4, n=1023), BN254),
+    "bls": ("torch_proof_bls12_381_mulchain12.json", "torch_pk_bls12_381_mulchain12.npz",
+            MulChainCircuit(seed=7, n=12), BLS12_381),
+}
+
+
+@pytest.mark.parametrize("fixture, ranks", [("mulchain8", 1), ("mulchain8", 2),
+                                            ("mulchain1023", 2), ("bls", 2)])
+def test_dist_prove_fixture(cuda, fixture, ranks, tmp_path):
+    """`DistPlaneProver` in a world of `ranks` ranks on the card (NCCL at
+    one rank, gloo at two on one card) proves each committed fixture's
+    proof bytes on every rank: MulChain(11, 8) from random.Random(42405)
+    (domain 16, the MSM's block path), the m = 2048 key (W = 29 at c = 9,
+    the totals path) and the 12-constraint BLS12-381 key; K1-K4 launched."""
+    from snark_tpu_torch.parallel.launch import run_ranks
+    from snark_tpu_torch.parallel.plane_dist import prove_from_file
+
+    vec_name, key_name, circuit, curve = DIST_FIXTURES[fixture]
+    with open(os.path.join(VECTORS, vec_name)) as f:
+        want = json.load(f)
+    if key_name is None:
+        path = str(tmp_path / "pk.npz")
+        Groth16(curve, device=cuda).circuit_specific_setup(
+            circuit, random.Random(int(want["setup_seed"])))[0].save(path)
+    else:
+        path = os.path.join(VECTORS, key_name)
+    results = run_ranks(prove_from_file, ranks, "cuda", path, circuit, "cuda", "tp", None,
+                        int(want["r"]), int(want["s"]), timeout_s=300)
+    suffix = "" if curve is BN254 else "_bls12_381"
+    for out in results:
+        assert out["backend"] == ("nccl" if ranks == 1 else "gloo")
+        assert ser.serialize_proof(out["proof"], curve).hex() == want["proof_bytes_hex"]
+        for k in ("bucket_madd_rows", "masked_add"):
+            for g in ("g1", "g2"):
+                assert out["launches"][f"{k}{suffix}_{g}"] > 0, (k, g)
+        assert out["launches"][f"ntt_pass{suffix}"] > 0 and out["launches"][f"field_ew{suffix}"] > 0
