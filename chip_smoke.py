@@ -151,6 +151,32 @@ Phases, each printing one JSON line with its wall seconds as it ends:
 5g. dryrun: `dryrun.dryrun_multichip(2, "cuda")` (log_n 10): the
    distributed prove of MulChain(5, 2^10 − 2) verifies on both ranks, then
    the dp-sharded h pipeline of a lite `BatchProver`.
+5h. legacy_u32: the reference's legacy device API on the card (`ops/curve_u32.py`,
+   `msm_u32.py`, `ntt_u32.py`, `groth16/qap.py` WitnessMapPlan), its path
+   driven once between a reset and a
+   read of the counts: CurveOps and G2CurveOps add (K2 `point_add`) and
+   double (K5) at LEGACY_LANES lanes on both curves, scalar_mul_const; the
+   legacy `msm` at 2^20 BN254 G1 points (c = 14) and 2^18 G2 (c = 12), the
+   MSM bench's pool tiled (K2 `masked_add` bucket steps and suffix scans,
+   one K18); FixedBasePlan (K2) on 2^12 scalars; NttPlan's four transforms
+   at 2^10 and 2^20 (K3 through `ntt_rows`, K4); and the reference's
+   small-circuit prove of MulChain(9, 1022) (m = 2046) on both curves
+   composed from the legacy API (WitnessMapPlan h, five `msm_host_combine`s
+   over the key's query arrays). Every kernel of LEGACY_GATE must have
+   launched; the counts go
+   into the kernel line as `legacy_launches` (K2, K3, K4, K5, K18). Then,
+   outside the count: each output exact against its plain version on the
+   card, the MSMs against the pool oracle, samples against the host, the
+   small sums and h equal to the plane prove's, their proof verified;
+   times (CUDA
+   events); `sharded_msm` and `DistNttPlan` (`parallel/dist_msm.py`,
+   `dist_ntt.py`) in a world of one rank (NCCL) and of two (gloo) equal to
+   the pool oracle and the one-device legacy plan.
+5i. config4_e2e, config4_shards: `snark_tpu_torch.config4_e2e` at 2^16
+   (setup, cold and warm prove, verify; its stage lines, peak device
+   memory, host RSS) and `snark_tpu_torch.config4_shards` at 2^20 over 8
+   modelled cards (a 2^17-point shard MSM against the pool oracle, 128
+   local rows of 1024 through `ntt_rows` against the plain version).
 6. msm_bench: `snark_tpu_torch.bench` on BN254 G1 at 2^20 points, signed
    c = 13, with the scan and with the batch-affine tree; G2 at 2^18 both
    ways; G1 unsigned c = 12 with the scan; every result equal to the pool
@@ -273,8 +299,9 @@ LATENCY_STEPS = 4096
 # snark_tpu_torch/ops/curve.py: imad_per_mul (one CIOS product),
 # imad_per_decode (one 16-bit row decode step) and op_imads (a curve
 # operation, 3b by additions where it is small).
-# K5 and K2 without a mask: no path calls them since K18 took over the
-# combine; their rows report 0 launches on the main path
+# K5 and K2 without a mask: the prove does not call them since K18 took
+# over the combine; their rows report 0 launches on the main path and the
+# legacy path's (legacy_u32) as `legacy_launches`, which must not be 0
 OFF_PATH = ("point_double_", "point_add_")
 MIXED_SCAN_STEPS = 4  # scan steps run through K11 in the kernels phases
 EDGE_LANES, EDGE_STEPS = 4096, 8  # the kernels phases' edge-operand checks
@@ -299,6 +326,28 @@ CONFIG4_LOG_N = 18
 # `ntt_rows`: dist_prove and config4 at 2^18 on one rank and on two, the
 # dry run at 2^10 on two
 NTT_ROWS_SHAPES = ((18, 512), (17, 512), (9, 32))
+# the legacy device API (phase legacy_u32): CurveOps lanes, the legacy MSM's
+# log2 points a group (c = pick_window(n): 14 and 12), the NttPlan sizes,
+# FixedBasePlan's scalars, the small-circuit composition's MulChain length
+# (m = 2046, the largest below 2048 variables), and the worlds' MSM (log2
+# points, c) and six-step NTT (n1, n2)
+LEGACY_LANES = 1 << 12
+LEGACY_MSM_LOG_N = {"g1": 20, "g2": 18}
+LEGACY_NTT_LOG_N = (10, 20)
+LEGACY_FIXED_BASE_N = 1 << 12
+SMALL_N = 1022
+LEGACY_DIST_MSM_LOG_N, LEGACY_DIST_C = 14, 8
+LEGACY_DIST_NTT = (256, 256)
+# the kernels the legacy path must launch; the kernel rows of these kernels
+# carry its counts as `legacy_launches`
+LEGACY_GATE = tuple(
+    f"{k}{sfx}_{g}" for sfx in ("", "_bls12_381") for k in ("masked_add", "point_add", "point_double")
+    for g in ("g1", "g2")) + ("horner_combine_g1", "horner_combine_g2", "ntt_pass", "field_ew",
+                               "ntt_pass_bls12_381", "field_ew_bls12_381")
+LEGACY_ROW_KERNELS = ("masked_add", "point_add", "point_double", "horner_combine", "ntt_pass",
+                      "field_ew")
+CONFIG4_E2E_LOG_N = 16
+CONFIG4_SHARDS = (20, 8)  # log n, modelled cards
 MADD_PARTS_CHECK = (12, 8)  # log n and c of bench_madd_parts' whole-pipeline check
 SCRIPT_BODY_LINE = {"nosub": 73, "halfmul": 88, "nodecode": 98}  # scripts/bench_madd_parts.py
 
@@ -1761,6 +1810,307 @@ def phase_dryrun(smi: str) -> dict:
     return {"nvidia_smi": smi, **rec}
 
 
+# ---------------------------------------------------------------------------
+# the legacy device API and configuration 4's single-card modules
+# ---------------------------------------------------------------------------
+
+
+def random_words(field, n: int, seed: int):
+    """(n, L) int32 canonical words below the field's p, drawn with numpy:
+    any canonical value is some element's Montgomery form."""
+    import numpy as np
+
+    from snark_tpu_torch.fields.limbs import u32_tensor
+
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 1 << 32, (n, field.limbs), dtype=np.uint64)
+    w[:, -1] = rng.integers(0, field.p >> (32 * (field.limbs - 1)), n)
+    return u32_tensor(w.astype(np.uint32), "cpu")
+
+
+def legacy_pool_case(curve, group: str, log_n: int, seed: int, device):
+    """The legacy MSM's inputs at 2^log_n points: the MSM bench's pool of 64
+    distinct points tiled, packed in the legacy layout on the card; uniform
+    scalars below r as 16-bit limbs (numpy, drawn with numpy); the exact
+    oracle Σ_j pool_j·(Σ_{i ≡ j mod 64} s_i). -> (ops, points, limbs,
+    oracle)."""
+    import numpy as np
+
+    from snark_tpu_torch.bench import host_curve
+    from snark_tpu_torch.ops.curve_u32 import get_g1_ops, get_g2_ops
+
+    ops = (get_g1_ops if group == "g1" else get_g2_ops)(curve, device)
+    hc = host_curve(group, curve)
+    pool = [hc.scalar_mul(hc.generator, k + 1) for k in range(POOL)]
+    n = 1 << log_n
+    points = ops.pack_affine_host(pool).repeat(n // POOL, 1, 1)
+    L, r = curve.fr.num_limbs, curve.fr.modulus
+    rng = np.random.default_rng(seed)
+    limbs = rng.integers(0, 1 << 16, (n, L), dtype=np.int64)
+    limbs[:, -1] = rng.integers(0, r >> (16 * (L - 1)), n)
+    sums = limbs.reshape(n // POOL, POOL, L).sum(axis=0)
+    agg = [sum(int(v) << (16 * k) for k, v in enumerate(row)) % r for row in sums]
+    return ops, points, limbs.astype(np.uint32), hc.msm(pool, agg)
+
+
+def legacy_curve_case(curve, group: str, device):
+    """LEGACY_LANES lanes of the legacy layout: 62 distinct multiples of the
+    generator, the identity and the negation of the first, tiled; q is p
+    rolled by one lane (sums meet doublings, inverses, the identity).
+    -> (ops, p, q, the host points of the first 64 lanes)."""
+    import torch
+
+    from snark_tpu_torch.bench import host_curve
+    from snark_tpu_torch.ops.curve_u32 import get_g1_ops, get_g2_ops
+
+    ops = (get_g1_ops if group == "g1" else get_g2_ops)(curve, device)
+    hc = host_curve(group, curve)
+    pts = [hc.scalar_mul(hc.generator, 3 * k + 1) for k in range(62)]
+    pts += [None, hc.neg(pts[0])]
+    p = ops.pack_affine_host(pts).repeat(LEGACY_LANES // 64, 1, 1)
+    return ops, p, torch.roll(p, 1, 0).contiguous(), pts
+
+
+def phase_legacy_u32(smi: str, device) -> tuple[dict, dict]:
+    """The legacy device API (`ops/curve_u32.py`, `msm_u32.py`,
+    `ntt_u32.py`, `WitnessMapPlan`) on the card. The path,
+    driven once between a reset and a read of the launch counts: CurveOps
+    add (K2 `point_add`) and double (K5) at LEGACY_LANES lanes in both groups
+    of both curves and scalar_mul_const; the legacy `msm` (K2 `masked_add`
+    bucket steps and scans, one K18) at LEGACY_MSM_LOG_N points of BN254 G1
+    and G2 (c = pick_window(n)); `FixedBasePlan` (K2 `point_add`) on
+    LEGACY_FIXED_BASE_N scalars; `NttPlan`'s four transforms (K3 through
+    `ntt_rows`, K4) at each of LEGACY_NTT_LOG_N; the reference's
+    small-circuit prove of MulChain(9, SMALL_N) (m = 2046, the largest
+    below 2048 variables) on both curves, composed from the legacy API by
+    `tests/test_torch_prove_small.py` `legacy_sums` (WitnessMapPlan h on
+    K4 and K3, five `msm_host_combine`s on K2). Gate: each of LEGACY_GATE
+    launched. Then, outside the count: every output against its plain
+    version on the card (exact) or the oracle (the MSMs' pool, host
+    points), their times (CUDA events), the small sums and h equal to the
+    plane prove's and their proof verified, and
+    `sharded_msm` and `DistNttPlan` in a world of one rank (NCCL) and of two
+    (gloo) against the one-device legacy API. -> (phase info, the path's
+    launches)."""
+    import numpy as np
+    import torch
+
+    from snark_tpu_torch import _native
+    from snark_tpu_torch.bench import host_curve
+    from snark_tpu_torch.fields.limbs import FR
+    from snark_tpu_torch.fields.params import BLS12_381, BN254
+    from snark_tpu_torch.groth16 import Groth16, assemble_proof
+    from snark_tpu_torch.groth16.groth16 import synthesize_witness
+    from snark_tpu_torch.models import MulChainCircuit
+    from snark_tpu_torch.ops import curve as C
+    from snark_tpu_torch.ops import msm_u32 as MU
+    from snark_tpu_torch.ops import ntt as N
+    from snark_tpu_torch.ops.fixed_base import table_walk
+    from snark_tpu_torch.ops.msm import pick_window, scalars_to_digits
+    from snark_tpu_torch.ops.ntt_u32 import get_ntt_plan
+    from snark_tpu_torch.parallel import dist_msm as DM
+    from snark_tpu_torch.parallel import dist_ntt as DN
+    from snark_tpu_torch.parallel.launch import run_each, run_ranks
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from test_torch_prove_small import legacy_sums
+
+    info = {"nvidia_smi": smi}
+    # inputs, made before the counts
+    curves = [(cv, g) for cv in (BN254, BLS12_381) for g in ("g1", "g2")]
+    cases = {(cv.name, g): legacy_curve_case(cv, g, device) for cv, g in curves}
+    msms = {g: legacy_pool_case(BN254, g, LEGACY_MSM_LOG_N[g], 20 + i, device)
+            for i, g in enumerate(LEGACY_MSM_LOG_N)}
+    plans = {log_n: get_ntt_plan(BN254.fr, 1 << log_n, device=device) for log_n in LEGACY_NTT_LOG_N}
+    xs = {log_n: plans[log_n].df.from_words(random_words(FR, 1 << log_n, log_n)).to(device)
+          for log_n in LEGACY_NTT_LOG_N}
+    g1 = cases[("bn254", "g1")][0]
+    fb = MU.FixedBasePlan(g1, 8)
+    hc1 = host_curve("g1", BN254)
+    fb_table = fb.make_table(hc1.generator, hc1, BN254.fr.num_bits, g1.pack_affine_host)
+    fb_limbs = msms["g1"][2][:LEGACY_FIXED_BASE_N]
+    fb_digits = scalars_to_digits(fb_limbs, 8, BN254.fr.num_bits)
+    small = []
+    for curve in (BN254, BLS12_381):
+        g16 = Groth16(curve, device=device)
+        circuit = MulChainCircuit(seed=9, n=SMALL_N, batch=True)
+        pk, vk = g16.circuit_specific_setup(circuit, random.Random(9))
+        small.append((curve, g16, circuit, pk, vk, synthesize_witness(circuit, curve)))
+    torch.cuda.synchronize()
+
+    # the path, counted
+    _native.reset_launches()
+    t = time.time()
+    curve_out = {k: (ops.add(p, q), ops.double(p)) for k, (ops, p, q, _) in cases.items()}
+    smc = g1.scalar_mul_const(cases[("bn254", "g1")][1][:1], (1 << 200) + 12345)
+    msm_out, msm_run = {}, {}
+    for g, (ops, pts, limbs, _) in msms.items():
+        before = dict(_native.LAUNCHES)
+        torch.cuda.synchronize()
+        t_msm = time.time()
+        msm_out[g] = MU.msm(ops, pts, limbs, BN254.fr.num_bits)
+        torch.cuda.synchronize()
+        msm_run[g] = {"s": round(time.time() - t_msm, 3), "launches": {
+            k: v - before.get(k, 0) for k, v in _native.LAUNCHES.items() if v != before.get(k, 0)}}
+    ntt_out = {log_n: {name: getattr(plans[log_n], name)(xs[log_n])
+                       for name in ("fft", "ifft", "coset_fft", "coset_ifft")}
+               for log_n in LEGACY_NTT_LOG_N}
+    fb_out = fb(fb_table, fb_digits)
+    small_out, small_s = [], []
+    for _, g16, _, pk, _, z in small:
+        torch.cuda.synchronize()
+        t_small = time.time()
+        small_out.append(legacy_sums(g16, pk, z))
+        small_s.append(round(time.time() - t_small, 3))
+    torch.cuda.synchronize()
+    info["path_s"] = round(time.time() - t, 3)
+    legacy = {k: v for k, v in _native.LAUNCHES.items() if v}
+    missing = [k for k in LEGACY_GATE if not legacy.get(k)]
+    if missing:
+        raise AssertionError(f"legacy_u32: the path did not launch {missing}: {legacy}")
+
+    # against the plain versions and the oracles, outside the count
+    curve_rows = []
+    for (cname, group), (ops, p, q, pts) in cases.items():
+        cv = BN254 if cname == "bn254" else BLS12_381
+        s, d = curve_out[(cname, group)]
+        pw, qw = ops.to_kernel(p), ops.to_kernel(q)
+        (add_plain, add_pms) = plain_time(lambda: C.point_add_plain(pw, qw, group, cv))
+        (dbl_plain, dbl_pms) = plain_time(lambda: C.point_double_plain(pw, group, cv))
+        err = max(max_abs_err(s, ops.from_kernel(add_plain, (LEGACY_LANES,))),
+                  max_abs_err(d, ops.from_kernel(dbl_plain, (LEGACY_LANES,))))
+        hc = host_curve(group, cv)
+        if ops.to_affine_host(s[:64]) != [hc.add(a, b) for a, b in zip(pts, pts[-1:] + pts[:-1])]:
+            raise AssertionError(f"legacy_u32 {cname} {group}: add differs from the host")
+        if ops.to_affine_host(d[:64]) != [hc.double(a) for a in pts]:
+            raise AssertionError(f"legacy_u32 {cname} {group}: double differs from the host")
+        curve_rows.append({"curve": cname, "group": group, "lanes": LEGACY_LANES,
+                           "max_abs_err": err, "add_ms": cuda_ms(lambda: ops.add(p, q), reps=10),
+                           "add_plain_ms": add_pms,
+                           "double_ms": cuda_ms(lambda: ops.double(p), reps=10),
+                           "double_plain_ms": dbl_pms})
+    info["curve_ops"] = curve_rows
+    if g1.to_affine_host(smc) != [hc1.scalar_mul(hc1.generator, (1 << 200) + 12345)]:
+        raise AssertionError("legacy_u32: scalar_mul_const differs from the host")
+
+    msm_rows = []
+    for g, (ops, pts, limbs, want) in msms.items():
+        if ops.to_affine_host(msm_out[g][None]) != [want]:
+            raise AssertionError(f"legacy_u32: the legacy msm in BN254 {g} differs from the pool")
+        n = pts.shape[0]
+        c = pick_window(n)
+        wc = MU.memory_aware_window_chunk(n, ops.K)
+        W = -(-BN254.fr.num_bits // c)
+        # one run, in the path above: its top window holds 2 of c bits, so
+        # its few buckets take about n/3 points each, and the bucket loop
+        # as many K2 steps (the reference's while loop runs as long)
+        msm_rows.append({"group": g, "points": n, "c": c, "windows": W,
+                         "window_chunk": wc if wc < W else None, "equal_to_pool_oracle": True,
+                         "s": msm_run[g]["s"], "launches_per_msm": msm_run[g]["launches"]})
+    info["msm"] = msm_rows
+
+    ntt_rows = []
+    for log_n in LEGACY_NTT_LOG_N:
+        plan, x = plans[log_n], xs[log_n]
+        n = 1 << log_n
+        xw = plan.df.to_words(x).contiguous()
+        want = {
+            "fft": lambda: N.ntt_rows_plain(xw, n, plan.fwd_tw),
+            "ifft": lambda: N.ntt_rows_plain(xw, n, plan.inv_tw, plan.n_inv),
+            "coset_fft": lambda: N.ntt_rows_plain(
+                N.field_ew_plain("mul", xw, plan.coset_scale), n, plan.fwd_tw),
+            "coset_ifft": lambda: N.field_ew_plain(
+                "mul", N.ntt_rows_plain(xw, n, plan.inv_tw), plan.coset_unscale_n),
+        }
+        for name, fn in want.items():
+            ref, pms = plain_time(fn)
+            err = max_abs_err(plan.df.to_words(ntt_out[log_n][name]), ref)
+            ntt_rows.append({"n": n, "transform": name, "max_abs_err": err, "plain_ms": pms,
+                             "ms": cuda_ms(lambda: getattr(plan, name)(x), reps=5)})
+    info["ntt"] = ntt_rows
+
+    pts = g1.to_kernel(fb_table.reshape(-1, 3, g1.K))
+    d = torch.as_tensor(fb_digits.astype(np.int64), device=device)
+    ref, pms = plain_time(lambda: table_walk(pts, d, 8, "g1", BN254, add=C.point_add_plain))
+    err = max_abs_err(g1.to_kernel(fb_out), ref)
+    scalars = [sum(int(v) << (16 * k) for k, v in enumerate(row)) for row in fb_limbs[:16]]
+    if g1.to_affine_host(fb_out[:16]) != [hc1.scalar_mul(hc1.generator, s) for s in scalars]:
+        raise AssertionError("legacy_u32: FixedBasePlan differs from the host")
+    info["fixed_base"] = {"scalars": LEGACY_FIXED_BASE_N, "c": 8, "max_abs_err": err,
+                          "ms": cuda_ms(lambda: fb(fb_table, fb_digits), reps=3), "plain_ms": pms}
+
+    small_rows = []
+    for (curve, g16, circuit, pk, vk, _), (sums, h), secs in zip(small, small_out, small_s):
+        plane = g16.prove(pk, circuit, r=11, s=12)
+        run = g16.last_run
+        if run.sums != sums or not torch.equal(run.h_std, h):
+            raise AssertionError(
+                f"legacy_u32: the {curve.name} legacy sums differ from the plane's")
+        proof = assemble_proof(g16, pk, sums["A"], sums["B"], sums["B1"], sums["L"], sums["H"],
+                               11, 12)
+        if proof != plane or not g16.verify(vk, [9], proof):
+            raise AssertionError(f"legacy_u32: the {curve.name} legacy proof does not verify")
+        small_rows.append({"curve": curve.name, "circuit": f"MulChain(9, {SMALL_N})",
+                           "m": pk.num_instance + pk.num_witness, "legacy_s": secs,
+                           "equal_to_plane": True, "verified": True,
+                           "plane_stage_ms": {k: round(v, 3) for k, v in run.stage_ms.items()}})
+    info["small_prove"] = small_rows
+
+    # sharded_msm and DistNttPlan in a world of one rank and of two
+    dops, dpts, dlimbs, dwant = legacy_pool_case(BN254, "g1", LEGACY_DIST_MSM_LOG_N, 30, "cpu")
+    ddigits = scalars_to_digits(dlimbs, LEGACY_DIST_C, BN254.fr.num_bits)
+    n1, n2 = LEGACY_DIST_NTT
+    dplan = get_ntt_plan(BN254.fr, n1 * n2, device=device)
+    dx = dplan.df.from_words(random_words(FR, n1 * n2, 31))
+    dist_want = {k: getattr(dplan, k)(dx.to(device)).cpu() for k in ("fft", "coset_fft")}
+    worlds = []
+    for ranks in (1, 2):
+        t = time.time()
+        res = run_ranks(run_each, ranks, "cuda",
+                        (DM.dist_sharded_msm, (dops.to_numpy(dpts), ddigits, LEGACY_DIST_C, "g1",
+                                               "bn254", "cuda")),
+                        (DN.dist_legacy_transforms, (dx.numpy(), n1, n2, "bn254", "cuda")),
+                        timeout_s=DIST_TIMEOUT_S)
+        for total, _ in res:
+            if dops.to_affine_host(total[None]) != [dwant]:
+                raise AssertionError(f"legacy_u32: sharded_msm at {ranks} ranks differs")
+        shards = {k: torch.as_tensor(np.concatenate([r[1][k] for r in res])) for k in res[0][1]}
+        for k, v in dist_want.items():
+            max_abs_err(shards[k], v)
+        max_abs_err(shards["ifft"], dx)
+        max_abs_err(shards["coset_ifft"], dx)
+        worlds.append({"ranks": ranks, "wall_s": round(time.time() - t, 3), "equal": True})
+    info["dist"] = {"msm_points": 1 << LEGACY_DIST_MSM_LOG_N, "c": LEGACY_DIST_C,
+                    "ntt": {"n1": n1, "n2": n2}, "worlds": worlds}
+    info["launches"] = legacy
+    return info, legacy
+
+
+def phase_config4_e2e(smi: str) -> dict:
+    """`snark_tpu_torch.config4_e2e` at CONFIG4_E2E_LOG_N: the setup, the cold
+    and the warm prove and the verify of MulChain(4, 2^log_n − 64); its stage
+    lines and its record. Gate: the proof verifies."""
+    from snark_tpu_torch import config4_e2e
+
+    lines = []
+    rec = config4_e2e.run(CONFIG4_E2E_LOG_N, device="cuda", emit=lines.append)
+    if rec.get("verified") is not True:
+        raise AssertionError(f"config4_e2e: {rec}")
+    return {"nvidia_smi": smi, "stages": lines, **rec}
+
+
+def phase_config4_shards(smi: str) -> dict:
+    """`snark_tpu_torch.config4_shards` at CONFIG4_SHARDS (log n, modelled
+    cards): the shard MSM against the pool oracle, the local NTT stage's
+    first row against its plain version."""
+    from snark_tpu_torch import config4_shards
+
+    rec = config4_shards.run(*CONFIG4_SHARDS, device="cuda")
+    if not (rec["msm_correct"] and rec["ntt_correct"]):
+        raise AssertionError(f"config4_shards: {rec}")
+    return {"nvidia_smi": smi, **rec}
+
+
 def phase_configs(device) -> dict:
     """Configurations 1 and 2 through `run_configs` (2: BN254 2^16 − 64,
     the setup from random.Random(0), a warm prove from random.Random(5), the
@@ -2159,6 +2509,19 @@ def main() -> int:
     phase_line("dryrun", t0, **phase_dryrun(smi))
 
     t0 = time.time()
+    info_l, legacy_launches = phase_legacy_u32(smi, device)
+    phase_line("legacy_u32", t0, **info_l)
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    phase_line("config4_e2e", t0, **phase_config4_e2e(smi))
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    phase_line("config4_shards", t0, **phase_config4_shards(smi))
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
     info_b, bench_launches = phase_msm_bench(inputs, smi)
     phase_line("msm_bench", t0, **info_b, launches={k: v for k, v in bench_launches.items() if v})
 
@@ -2266,10 +2629,17 @@ def main() -> int:
                 row["setup_launches"] = counts.get(row["name"], 0)
                 if not row["setup_launches"]:
                     raise AssertionError(f"the setup did not launch {row['name']}")
+    # K2, K3, K4, K5 and K18's launches on the legacy path (legacy_u32)
+    for row in rows + bls_rows + msm_rows + bls_msm_rows:
+        if row["name"].startswith(LEGACY_ROW_KERNELS):
+            row["legacy_launches"] = legacy_launches.get(row["name"], 0)
     rows = (rows + bls_rows + msm_rows + bls_msm_rows + vpu_rows + parts_rows + bisect_rows
             + madd_rows)
     for row in rows:
+        # K5 and K2 unmasked: off the prove since K18, on the legacy path
         off_path = row.get("on_path") is False and row["name"].startswith(OFF_PATH)
+        if off_path and not row["legacy_launches"]:
+            raise AssertionError(f"{row['name']} was not launched on the legacy path")
         if row["launches"] == 0 and not off_path:
             raise AssertionError(f"{row['name']} was not launched on the main path")
         row["ptxas"] = build["ptxas"].get(kernel_template(row["name"]))

@@ -18,6 +18,15 @@ from .host import Fp
 from .towers import Fq2, Fq6, Fq12, make_tower
 
 
+def field_impl() -> str:
+    """The field layout of the legacy device API (`ops/curve_u32.py`,
+    `ops/msm_u32.py`, `ops/ntt_u32.py`), read as the reference reads it:
+    SNARK_TPU_FIELD_IMPL, "u32" unless it says "f32"."""
+    import os
+
+    return "u32" if os.environ.get("SNARK_TPU_FIELD_IMPL", "u32") == "u32" else "f32"
+
+
 def get_compute_field(params: FieldParams, device="cuda", impl: str = "u32"):
     """The torch field layer for `params` on `device`, one of the
     reference's two interchangeable backends (which it picks with the
@@ -54,6 +63,7 @@ __all__ = [
     "Fq12",
     "get_compute_field",
     "get_curve",
+    "field_impl",
     "get_field",
     "make_tower",
 ]

@@ -17,8 +17,13 @@ then one conditional subtraction; each carry is one pass up the rows
 (`limbs._carry_rows`). Every result is the canonical residue, so it equals
 the reference's limb for limb on any device.
 
-This is setup's field layer and the `u32` line of `bench_field`; no kernel
-runs here (the kernels' field core is `csrc/field.cuh`, over 32-bit limbs).
+This is setup's field layer, the `u32` line of `bench_field` and the
+default layout of the legacy device API (`ops/curve_u32.py`,
+`ops/msm_u32.py`, `ops/ntt_u32.py`); no kernel runs here (the kernels'
+field core is `csrc/field.cuh`, over 32-bit limbs). `to_words` and
+`from_words` pack and unpack pairs of limbs to and from the kernels'
+32-bit words: R = 2^(16·L) is the kernels' 2^(32·L/2), so the Montgomery
+form carries across unchanged.
 """
 
 from __future__ import annotations
@@ -46,6 +51,23 @@ def limbs16_decode(arr) -> list[int]:
     a = np.asarray(arr)
     rows = a.reshape(-1, a.shape[-1]).astype("<u2")
     return [int.from_bytes(r.tobytes(), "little") for r in rows]
+
+
+def to_words(t: torch.Tensor) -> torch.Tensor:
+    """(..., 2k) int32 16-bit limbs -> (..., k) int32 words of the kernels'
+    format (limbs 2j, 2j + 1 the low and high halves of word j). Exact."""
+    if t.shape[-1] % 2:
+        raise ValueError(f"an odd number of 16-bit limbs: {tuple(t.shape)}")
+    pairs = t.to(torch.int64).reshape(t.shape[:-1] + (-1, 2))
+    w = pairs[..., 0] | (pairs[..., 1] << 16)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def from_words(w: torch.Tensor) -> torch.Tensor:
+    """(..., k) int32 words -> (..., 2k) int32 16-bit limbs, low first: the
+    inverse of `to_words`."""
+    return torch.stack([w & LIMB_MASK, (w >> 16) & LIMB_MASK], dim=-1).reshape(
+        w.shape[:-1] + (-1,))
 
 
 class DeviceField:
@@ -109,6 +131,15 @@ class DeviceField:
     @staticmethod
     def _widen(x: torch.Tensor) -> torch.Tensor:
         return torch.cat([x, torch.zeros_like(x[:1])])
+
+    # ----- the kernels' words -------------------------------------------
+    @staticmethod
+    def to_words(t: torch.Tensor) -> torch.Tensor:
+        return to_words(t)
+
+    @staticmethod
+    def from_words(w: torch.Tensor) -> torch.Tensor:
+        return from_words(w)
 
     # ----- ring ops ----------------------------------------------------
     def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

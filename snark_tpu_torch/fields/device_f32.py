@@ -14,7 +14,10 @@ too (a scaling by a power of two, then floor). No step rounds, so the
 order in which a device sums the terms does not matter: the digits equal
 the reference's, digit for digit, on the CPU and on the card.
 
-This is the `f32` line of `bench_field`; no kernel runs here.
+This is the `f32` line of `bench_field` and, under
+SNARK_TPU_FIELD_IMPL=f32, the layout of the legacy device API; no kernel
+runs here. `to_words` and `from_words` pack and unpack four digits to and
+from the kernels' 32-bit words (R = 2^(16·num_limbs) is the kernels' R).
 """
 
 from __future__ import annotations
@@ -60,6 +63,24 @@ def _strict_normalize(z: torch.Tensor) -> torch.Tensor:
         shift <<= 1
     z = z + _shift_digits(G, 1)
     return z - 256.0 * torch.floor(z * INV256)
+
+
+def to_words(t: torch.Tensor) -> torch.Tensor:
+    """(..., 4k) float32 base-256 digits (canonical, below 256) -> (..., k)
+    int32 words of the kernels' format, digit 4j + i at bits 8i of word j.
+    Exact."""
+    if t.shape[-1] % 4:
+        raise ValueError(f"digits not in fours: {tuple(t.shape)}")
+    d = t.to(torch.int64).reshape(t.shape[:-1] + (-1, 4))
+    w = d[..., 0] | (d[..., 1] << 8) | (d[..., 2] << 16) | (d[..., 3] << 24)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def from_words(w: torch.Tensor) -> torch.Tensor:
+    """(..., k) int32 words -> (..., 4k) float32 digits: the inverse of
+    `to_words`."""
+    d = torch.stack([(w >> (8 * i)) & 0xFF for i in range(4)], dim=-1)
+    return d.reshape(w.shape[:-1] + (-1,)).to(F32)
 
 
 class DeviceFieldF32:
@@ -129,6 +150,15 @@ class DeviceFieldF32:
         d = np.asarray(digits, dtype=np.int64).reshape(-1, self.R8)
         pairs = d.reshape(d.shape[0], self.R8 // 2, 2)
         return (pairs[..., 0] | (pairs[..., 1] << 8)).astype(np.uint32)
+
+    # ----- the kernels' words -------------------------------------------
+    @staticmethod
+    def to_words(t: torch.Tensor) -> torch.Tensor:
+        return to_words(t)
+
+    @staticmethod
+    def from_words(w: torch.Tensor) -> torch.Tensor:
+        return from_words(w)
 
     # ----- internal helpers ---------------------------------------------
     def _mul_wide(self, A: torch.Tensor, B: torch.Tensor, out_rows: int) -> torch.Tensor:

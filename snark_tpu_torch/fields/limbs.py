@@ -117,6 +117,17 @@ def fields_of(curve: CurveParams) -> tuple[Field, Field]:
     return Field(curve.fr), Field(curve.fq)
 
 
+@functools.lru_cache(maxsize=None)
+def field_of(params: FieldParams) -> Field:
+    """The port's `Field` of a prime field: the one `fields_of` keeps for a
+    ported curve's Fr or Fq, else a new one."""
+    for curve in (BN254, BLS12_381):
+        for f in fields_of(curve):
+            if f.params == params:
+                return f
+    return Field(params)
+
+
 FR, FQ = fields_of(BN254)  # BN254, the default curve of every entry point
 BLS_FR, BLS_FQ = fields_of(BLS12_381)
 

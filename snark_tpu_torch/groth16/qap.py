@@ -1,10 +1,15 @@
-"""R1CS -> QAP witness map: the padded-CSR matvec over K4.
+"""R1CS -> QAP: the host instance map and the witness map on K3 and K4.
 
-Counterpart of the JAX package's `groth16/qap.py` (`PaddedCsr`,
-`PaddedCsr.from_coo`, `WitnessMapPlan.matvec`, `domain_size_for`). The
-evaluation domain is
-num_constraints + num_instance rounded up to a power of two; the A side
+Counterpart of the JAX package's `groth16/qap.py` (`domain_size_for`,
+`batch_inverse`, `lagrange_coeffs_at`, `evaluate_variable_polys_at_tau`,
+`PaddedCsr`, `PaddedCsr.from_coo`, `WitnessMapPlan`). The evaluation domain
+is num_constraints + num_instance rounded up to a power of two; the A side
 gets one input-consistency row per instance variable (libsnark reduction).
+The instance map (Lagrange coefficients and u, v, w at τ) is exact host
+work on Python ints, as in the reference (the setup runs its device
+counterpart, `qap_device.py`). `matvec` is the padded-CSR product on K4;
+`WitnessMapPlan` is the reference's legacy witness map, whose
+`h_from_evals` runs on the legacy `NttPlan` (`ops/ntt_u32.py`, K3 and K4).
 """
 
 from __future__ import annotations
@@ -14,13 +19,67 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..fields.limbs import FR, Field, pack16_to_u32, split_u32_to16, u32_tensor
+from ..fields import field_impl, get_compute_field
+from ..fields.host import Fp
+from ..fields.limbs import FR, Field, field_of, pack16_to_u32, split_u32_to16, u32_tensor
+from ..fields.params import FieldParams
 from ..ops.ntt import field_ew
+from ..ops.ntt_u32 import get_ntt_plan
 
 
 def domain_size_for(num_constraints: int, num_instance: int) -> int:
     n = num_constraints + num_instance
     return 1 << (n - 1).bit_length()
+
+
+def batch_inverse(f: Fp, xs: list[int]) -> list[int]:
+    """Montgomery's batch inversion: 3n products and one inversion."""
+    n = len(xs)
+    prefix = [1] * (n + 1)
+    for i, x in enumerate(xs):
+        prefix[i + 1] = prefix[i] * x % f.p
+    inv_all = f.inv(prefix[n])
+    out = [0] * n
+    for i in range(n - 1, -1, -1):
+        out[i] = prefix[i] * inv_all % f.p
+        inv_all = inv_all * xs[i] % f.p
+    return out
+
+
+def lagrange_coeffs_at(params: FieldParams, n: int, tau: int) -> list[int]:
+    """L_j(τ) for the radix-2 domain H of size n, j = 0..n − 1:
+    L_j(x) = (Z(x)/n)·ω^j/(x − ω^j), or the indicator of j where τ = ω^j."""
+    p = params.modulus
+    omega = params.root_of_unity(n)
+    pows = [1] * n
+    for j in range(1, n):
+        pows[j] = pows[j - 1] * omega % p
+    diffs = [(tau - w) % p for w in pows]
+    if any(d == 0 for d in diffs):
+        return [1 if d == 0 else 0 for d in diffs]
+    zn = (pow(tau, n, p) - 1) * pow(n, -1, p) % p
+    inv_diffs = batch_inverse(Fp(params), diffs)
+    return [zn * w % p * inv_d % p for w, inv_d in zip(pows, inv_diffs)]
+
+
+def evaluate_variable_polys_at_tau(params: FieldParams, matrices: list, num_constraints: int,
+                                   num_instance: int, num_variables: int, tau: int):
+    """-> (u_i(τ), v_i(τ), w_i(τ) for every variable, Z_H(τ)); matrices
+    [A, B, C] as lists of rows of (coefficient, column). u includes the
+    input-consistency rows A[num_constraints + i][i] = 1."""
+    p = params.modulus
+    n = domain_size_for(num_constraints, num_instance)
+    lag = lagrange_coeffs_at(params, n, tau)
+    out = [[0] * num_variables for _ in range(3)]
+    for j in range(num_constraints):
+        lj = lag[j]
+        for acc, mat in zip(out, matrices):
+            for coeff, col in mat[j]:
+                acc[col] = (acc[col] + coeff * lj) % p
+    u, v, w = out
+    for i in range(num_instance):
+        u[i] = (u[i] + lag[num_constraints + i]) % p
+    return u, v, w, (pow(tau, n, p) - 1) % p
 
 
 @dataclass
@@ -95,3 +154,43 @@ def matvec(mat: PaddedCsr, z_mont: torch.Tensor, field: Field = FR) -> torch.Ten
         )
         x = s.reshape(rows, h, L)
     return x[:, 0].contiguous()
+
+
+class WitnessMapPlan:
+    """The reference's legacy witness map (`snark_tpu/groth16/qap.py:187-248`)
+    for one scalar field and domain size, in the legacy API's layout
+    ((rows, L16) Montgomery 16-bit limbs, or f32 digits): `matvec` is
+    `matvec` above on K4, `h_from_evals` the h pipeline on the legacy
+    `NttPlan` (K3 `ntt_pass` launches through `ntt_rows`, K4)."""
+
+    def __init__(self, params: FieldParams, domain_n: int, device="cuda"):
+        self.params = params
+        self.n = domain_n
+        self.df = get_compute_field(params, device, field_impl())
+        self.field = field_of(params)
+        self.ntt = get_ntt_plan(params, domain_n, device=device)
+        p = params.modulus
+        z_coset = (pow(params.generator, domain_n, p) - 1) % p  # Z_H on g·H
+        self.z_coset_inv = self.field.const(pow(z_coset, -1, p), device)
+
+    def matvec(self, mat: PaddedCsr, z_mont: torch.Tensor) -> torch.Tensor:
+        """The port's `PaddedCsr` (its coefficients in the kernels' words)
+        times z (M, L16) Montgomery -> (rows, L16)."""
+        df = self.df
+        return df.from_words(matvec(mat, df.to_words(z_mont).contiguous(), self.field))
+
+    def h_from_evals(self, a_evals, b_evals, c_evals) -> torch.Tensor:
+        """Domain evaluations (n, L16) Montgomery of A·z, B·z, C·z -> the
+        coefficients of h = (A·B − C)/Z_H (n, L16), natural order,
+        Montgomery form; the last is structurally zero. Each input: the
+        inverse transform, the coset scale and the forward transform
+        (arkworks' coset_fft); then (a·b − c)/Z_H(g) (one K4 "hadamard"
+        launch) and the inverse coset transform."""
+        df, ntt = self.df, self.ntt
+
+        def on_coset(x):
+            return ntt.coset_fft_words(ntt.ifft_words(df.to_words(x).contiguous()))
+
+        h_ev = field_ew("hadamard", on_coset(a_evals), on_coset(b_evals), on_coset(c_evals),
+                        self.z_coset_inv, field=self.field)
+        return df.from_words(ntt.coset_ifft_words(h_ev))

@@ -19,7 +19,9 @@ The reference's legacy path adds, from the identity, the table's points
 as projective (x, y, 1) (the identity (0, 1, 0)) with the complete
 addition, one window at a time, identity rows included. Its projective
 output is what a key of such a vector stores as its query array, so
-`walk_legacy` runs the same chain, one K2 `point_add` launch a window.
+`walk_legacy` runs the same chain (`table_walk`, which the legacy
+`FixedBasePlan` of `ops/msm_u32.py` runs too), one K2 `point_add` launch
+a window.
 """
 
 from __future__ import annotations
@@ -39,6 +41,21 @@ from .msm import unsigned_digits
 C = 8  # window bits: a digit is a byte of the scalar
 PLANE_MIN = 1 << 11  # the reference's SNARK_TPU_SETUP_PLANE_MIN: below, its legacy path
 CHUNK = 1 << 20  # lanes a K1 launch (2^20 BLS12-381 G2 accumulators: 302 MB)
+
+
+def table_walk(pts: torch.Tensor, digits: torch.Tensor, c: int, group: str,
+               curve: CurveParams = BN254, add=point_add) -> torch.Tensor:
+    """The reference's legacy fixed-base product (`snark_tpu/ops/msm.py`
+    `FixedBasePlan._impl`, `:378-389`): from the identity, acc +
+    pts[w·2^c + digits[:, w]] for w = 0..W − 1, one complete addition (K2
+    `point_add`, or `add`) a window. pts (W·2^c, 3, K, L) projective limbs,
+    table entry d of window w at row w·2^c + d; digits (N, W) -> (N, 3, K,
+    L). `FixedBase.walk_legacy` and the legacy `FixedBasePlan` run it."""
+    d = digits.to(device=pts.device, dtype=torch.int64)
+    acc = identity(d.shape[0], group, pts.device, curve)
+    for w in range(d.shape[1]):
+        acc = add(acc, pts[(w << c) + d[:, w]], group, curve)
+    return acc
 
 
 def num_windows(curve: CurveParams) -> int:
@@ -103,19 +120,15 @@ class FixedBase:
         return torch.cat(outs) if len(outs) > 1 else outs[0]
 
     def walk_legacy(self, std: torch.Tensor) -> torch.Tensor:
-        """The reference's legacy chain: from the identity, acc + table
-        point of window w's digit (complete addition, K2 without a mask),
-        w = 0..W − 1 -> (N, 3, K, L) projective limbs."""
+        """The reference's legacy chain (`table_walk`) over the generator
+        table's points as projective (x, y, 1), the identity (0, 1, 0) ->
+        (N, 3, K, L) projective limbs."""
         fq = fields_of(self.curve)[1]
         x, y = decode_rows(self.table, self.group, self.curve)  # the identity decodes to (0, 1)
         z = torch.zeros_like(x)
         z[:, 0] = torch.where((self.table[:, -1] != 0)[:, None], fq.const(1, x.device), 0)
         pts = torch.stack([x, y, z], dim=1)
-        digits = self.digits(std).to(torch.int64)
-        acc = identity(std.shape[0], self.group, std.device, self.curve)
-        for w in range(self.W):
-            acc = point_add(acc, pts[(w << C) + digits[:, w]], self.group, self.curve)
-        return acc
+        return table_walk(pts, self.digits(std), C, self.group, self.curve)
 
     def points(self, std: torch.Tensor) -> torch.Tensor:
         """[s_i]·G -> (N, 3, K, L) projective limbs: vectors shorter than

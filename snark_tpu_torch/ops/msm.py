@@ -1,14 +1,20 @@
 """Pippenger window choice and window digits, as torch ops.
 
-Counterpart of the JAX package's `ops/msm.py` (`scalars_to_digits`,
-`scalars_to_digits_signed`, `signed_digits_from_u8_planes`) and the window
-picks of `ops/msm_plane.py`.
+Counterpart of the JAX package's `ops/msm.py` (`pick_window`,
+`scalars_to_digits`, `scalars_to_digits_signed`, `digits_from_limbs_device`,
+`signed_digits_from_u8_planes`) and the window picks of
+`ops/msm_plane.py`. `scalars_to_digits` and `scalars_to_digits_signed`
+are the reference's host functions on (N, L) 16-bit limb arrays, numpy in
+and out; `unsigned_digits` and `signed_digits` compute the same digits
+from the kernels' 32-bit words on the device.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
+import numpy as np
 import torch
 
 
@@ -32,6 +38,59 @@ def pick_window_small(n: int) -> int:
     """The window of the reference's legacy MSM, which its prover takes below
     2048 variables: ~log2(n) − 6 clamped to [4, 16], and 4 up to 32 points."""
     return 4 if n <= 32 else int(max(4, min(16, math.floor(math.log2(n)) - 6)))
+
+
+def pick_window(n: int) -> int:
+    """The legacy MSM's window (`snark_tpu/ops/msm.py:35-49`):
+    `pick_window_small`, capped by SNARK_TPU_MSM_WINDOW where it is set."""
+    c = pick_window_small(n)
+    cap = int(os.environ.get("SNARK_TPU_MSM_WINDOW", "0"))
+    return min(c, cap) if cap else c
+
+
+def scalars_to_digits(scalars, c: int, num_bits: int) -> np.ndarray:
+    """(N, L) 16-bit-limb standard-form scalars (uint32 lanes) -> (N, W)
+    uint32 window digits, W = ceil(num_bits / c) (host; `:52-70`)."""
+    arr = np.asarray(scalars, dtype=np.uint32)
+    n, L = arr.shape
+    bits = np.unpackbits(arr.astype("<u2").view(np.uint8).reshape(n, 2 * L), axis=1,
+                         bitorder="little")
+    W = -(-num_bits // c)
+    digits = np.zeros((n, W), dtype=np.uint32)
+    for w in range(W):
+        seg = bits[:, w * c : min((w + 1) * c, bits.shape[1])]
+        digits[:, w] = seg @ (1 << np.arange(seg.shape[1], dtype=np.uint32)).astype(np.uint32)
+    return digits
+
+
+def scalars_to_digits_signed(scalars, c: int, num_bits: int) -> np.ndarray:
+    """(N, L) 16-bit-limb scalars -> (N, W) int32 balanced digits in
+    (−2^(c−1), 2^(c−1)], the last window non-negative, with a carry window
+    where the top unsigned window spans all c bits (host; `:73-99`)."""
+    d = scalars_to_digits(scalars, c, num_bits).astype(np.int64)
+    n, w_u = d.shape
+    if num_bits - (w_u - 1) * c >= c:
+        d = np.concatenate([d, np.zeros((n, 1), np.int64)], axis=1)
+    W = d.shape[1]
+    half = 1 << (c - 1)
+    carry = np.zeros(n, np.int64)
+    for w in range(W - 1):
+        v = d[:, w] + carry
+        carry = (v > half).astype(np.int64)
+        d[:, w] = v - (carry << c)
+    d[:, W - 1] += carry
+    return d.astype(np.int32)
+
+
+def digits_from_limbs_device(limbs: torch.Tensor, c: int, num_bits: int) -> torch.Tensor:
+    """(N, L) int32 standard-form 16-bit limbs on the device -> (N, W)
+    int32 window digits, for c dividing 16 (`:101-116`)."""
+    if 16 % c:
+        raise ValueError(f"device digit extraction needs c | 16, got c = {c}")
+    n, L = limbs.shape
+    mask = (1 << c) - 1
+    parts = [(limbs >> (c * k)) & mask for k in range(16 // c)]
+    return torch.stack(parts, dim=-1).reshape(n, L * (16 // c))[:, : -(-num_bits // c)]
 
 
 def pick_window_plane_signed(n: int) -> int:

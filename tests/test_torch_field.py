@@ -216,14 +216,17 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "tests", "test_torch_prove_small.py")  # chip_smoke.py imports it
 
 
 def test_port_imports_no_jax():
-    """No module of the port, and not chip_smoke.py, imports jax or the
-    JAX package; the walk reaches every module, the field layer, K9-K17,
+    """No module of the port, and neither chip_smoke.py nor the test module
+    it imports, imports jax or the JAX package; the walk reaches every module, the field layer, K9-K17,
     bench_field, bench_vpu_peak, bench_reduce_parts, bench_bisect_mul, the
     relations layer, the circuits, the utilities, the SNARK trait layer,
-    the batched prover and the configuration runner among them."""
+    the batched prover, the configuration runner, the legacy device API
+    (curve, MSM and NTT plans, the witness map, the legacy distributed MSM
+    and NTT) and configuration 4's single-card modules among them."""
     walked = {os.path.relpath(path, ROOT) for path in _port_sources()}
     relations = ("__init__", "assignment", "constraint_system", "constraint_system_ref",
                  "error", "field_interner", "gadgets", "instance_outliner", "lc_map",
@@ -238,7 +241,10 @@ def test_port_imports_no_jax():
                 "snark/api.py", "snark/universal.py", "snark/serialize.py",
                 "groth16/groth16.py", "parallel/__init__.py", "parallel/batch.py",
                 "run_configs.py", "parallel/mesh.py", "parallel/launch.py",
-                "parallel/plane_dist.py", "dryrun.py"):
+                "parallel/plane_dist.py", "dryrun.py", "ops/__init__.py", "ops/curve_u32.py",
+                "ops/msm_u32.py", "ops/ntt_u32.py", "groth16/qap.py", "groth16/__init__.py",
+                "parallel/dist_msm.py", "parallel/dist_ntt.py", "config4_e2e.py",
+                "config4_shards.py"):
         assert os.path.join("snark_tpu_torch", mod) in walked, mod
     bad = []
     for path in _port_sources():

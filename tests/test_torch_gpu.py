@@ -727,3 +727,143 @@ def test_dist_prove_fixture(cuda, fixture, ranks, tmp_path):
             for g in ("g1", "g2"):
                 assert out["launches"][f"{k}{suffix}_{g}"] > 0, (k, g)
         assert out["launches"][f"ntt_pass{suffix}"] > 0 and out["launches"][f"field_ew{suffix}"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the legacy device API (ops/curve_u32.py, msm_u32.py, ntt_u32.py,
+# groth16/qap.py WitnessMapPlan, parallel/dist_msm.py, dist_ntt.py) and the
+# reference's small-circuit prove composed from it
+# ---------------------------------------------------------------------------
+
+LEGACY_GROUPS = [(BN254, "g1"), (BN254, "g2"), (BLS12_381, "g1"), (BLS12_381, "g2")]
+
+
+def _legacy_ops(curve, group, device):
+    from snark_tpu_torch.ops.curve_u32 import get_g1_ops, get_g2_ops
+
+    return (get_g1_ops if group == "g1" else get_g2_ops)(curve, device)
+
+
+@pytest.mark.parametrize("curve,group", LEGACY_GROUPS,
+                         ids=[f"{c.name}_{g}" for c, g in LEGACY_GROUPS])
+def test_legacy_curve_ops_and_msm_match_cpu(cuda, curve, group):
+    """`CurveOps`/`G2CurveOps` add (K2 `point_add`), double (K5),
+    scalar_mul_const, and the legacy `msm`, `MsmPlan.window_sums` (K2
+    `masked_add`, K18) and `FixedBasePlan` (G1) on the card equal the CPU
+    plain versions limb for limb and the host; each kernel launched."""
+    from snark_tpu_torch.fields.device import limbs16_encode
+    from snark_tpu_torch.ops import msm_u32 as MU
+    from snark_tpu_torch.ops.msm import scalars_to_digits
+
+    hc = host_g1(curve) if group == "g1" else host_g2(curve)
+    gpu, cpu = _legacy_ops(curve, group, cuda), _legacy_ops(curve, group, "cpu")
+    rng = random.Random(9)
+    pts = [hc.scalar_mul(hc.generator, rng.randrange(1, 2**40)) for _ in range(62)]
+    pts += [None, hc.neg(pts[0])]
+    p_cpu = cpu.pack_affine_host(pts)
+    p_gpu = p_cpu.to(cuda)
+    q_cpu = torch.roll(p_cpu, 3, 0)
+    _native.reset_launches()
+    for name, args in (("add", (p_gpu, q_cpu.to(cuda))), ("double", (p_gpu,))):
+        got = getattr(gpu, name)(*args).cpu()
+        assert torch.equal(got, getattr(cpu, name)(*(a.cpu() for a in args))), name
+    assert torch.equal(gpu.scalar_mul_const(p_gpu, 2**70 + 3).cpu(),
+                       cpu.scalar_mul_const(p_cpu, 2**70 + 3))
+    r = curve.fr.modulus
+    scalars = [rng.randrange(r) for _ in range(len(pts))]
+    limbs = limbs16_encode(scalars, curve.fr)
+    got = MU.msm(gpu, p_gpu, limbs, curve.fr.num_bits, c=5).cpu()
+    assert torch.equal(got, MU.msm(cpu, p_cpu, limbs, curve.fr.num_bits, c=5))
+    assert gpu.to_affine_host(got[None]) == [hc.msm(pts, scalars)]
+    digits = scalars_to_digits(limbs, 6, curve.fr.num_bits)
+    assert torch.equal(MU.MsmPlan(gpu, 6).window_sums(p_gpu, digits).cpu(),
+                       MU.MsmPlan(cpu, 6).window_sums(p_cpu, digits))
+    sfx = "" if curve is BN254 else f"_{curve.name}"
+    want = {f"point_add{sfx}_{group}", f"point_double{sfx}_{group}", f"masked_add{sfx}_{group}",
+            f"horner_combine{sfx}_{group}"}
+    if group == "g1":
+        plan = MU.FixedBasePlan(gpu, 4)
+        table = plan.make_table(hc.generator, hc, curve.fr.num_bits, cpu.pack_affine_host)
+        d = scalars_to_digits(limbs[:8], 4, curve.fr.num_bits)
+        got = plan(table.to(cuda), d).cpu()
+        assert torch.equal(got, MU.FixedBasePlan(cpu, 4)(table, d))
+        assert gpu.to_affine_host(got) == [hc.scalar_mul(hc.generator, s) for s in scalars[:8]]
+    assert all(_native.LAUNCHES[k] > 0 for k in want), _native.LAUNCHES
+
+
+@pytest.mark.parametrize("curve", [BN254, BLS12_381], ids=["bn254", "bls12_381"])
+def test_legacy_ntt_and_witness_map_on_k3(cuda, curve):
+    """The legacy `NttPlan` at every n from 8 to 2^10 (one row, and a batch
+    of three rows) runs on K3 and K4 and equals the CPU plain versions limb for limb
+    in all four transforms; the legacy `WitnessMapPlan.h_from_evals` too."""
+    from snark_tpu_torch.groth16 import WitnessMapPlan
+    from snark_tpu_torch.ops.ntt_u32 import get_ntt_plan
+
+    rng = random.Random(10)
+    sfx = "" if curve is BN254 else f"_{curve.name}"
+    for log_n in range(3, 11):
+        n = 1 << log_n
+        gpu, cpu = get_ntt_plan(curve.fr, n, device=cuda), get_ntt_plan(curve.fr, n, device="cpu")
+        x = cpu.df.array([rng.randrange(curve.fr.modulus) for _ in range(3 * n)]).reshape(3, n, -1)
+        _native.reset_launches()
+        for name in ("fft", "ifft", "coset_fft", "coset_ifft"):
+            assert torch.equal(getattr(gpu, name)(x.to(cuda)).cpu(), getattr(cpu, name)(x)), (n, name)
+            assert torch.equal(getattr(gpu, name)(x[0].to(cuda)).cpu(), getattr(cpu, name)(x[0]))
+        assert _native.LAUNCHES[f"ntt_pass{sfx}"] >= 4 and _native.LAUNCHES[f"field_ew{sfx}"] >= 3
+    evals = [cpu.df.array([rng.randrange(curve.fr.modulus) for _ in range(64)]) for _ in range(3)]
+    got = WitnessMapPlan(curve.fr, 64, cuda).h_from_evals(*(e.to(cuda) for e in evals))
+    assert torch.equal(got.cpu(), WitnessMapPlan(curve.fr, 64, "cpu").h_from_evals(*evals))
+
+
+@pytest.mark.parametrize("ranks", [1, 2])
+def test_legacy_dist_msm_and_ntt(cuda, ranks):
+    """`sharded_msm` and `DistNttPlan` in a world of `ranks` on the card
+    (NCCL at one, gloo at two): every rank's total is the host MSM, the
+    transforms' shards equal the one-device legacy plan's."""
+    from snark_tpu_torch.parallel import dist_msm as DM
+    from snark_tpu_torch.parallel import dist_ntt as DN
+    from snark_tpu_torch.parallel.launch import run_each, run_ranks
+    from snark_tpu_torch.fields.device import limbs16_encode
+    from snark_tpu_torch.ops.msm import scalars_to_digits
+    from snark_tpu_torch.ops.ntt_u32 import get_ntt_plan
+
+    hc, ops = host_g1(BN254), _legacy_ops(BN254, "g1", "cpu")
+    rng = random.Random(11)
+    pts = [hc.scalar_mul(hc.generator, rng.randrange(1, 2**30)) for _ in range(256)]
+    scalars = [rng.randrange(R) for _ in range(256)]
+    digits = scalars_to_digits(limbs16_encode(scalars, BN254.fr), 6, 254)
+    plan = get_ntt_plan(BN254.fr, 1 << 10, device="cpu")
+    x = plan.df.array(rand(1 << 10, 12))
+    res = run_ranks(run_each, ranks, "cuda",
+                    (DM.dist_sharded_msm, (ops.to_numpy(ops.pack_affine_host(pts)), digits, 6,
+                                           "g1", "bn254", "cuda")),
+                    (DN.dist_legacy_transforms, (x.numpy(), 32, 32, "bn254", "cuda")),
+                    timeout_s=300)
+    want = hc.msm(pts, scalars)
+    for total, _ in res:
+        assert ops.to_affine_host(total[None]) == [want]
+    shards = {k: torch.as_tensor(np.concatenate([r[1][k] for r in res])) for k in res[0][1]}
+    assert torch.equal(shards["fft"], plan.fft(x))
+    assert torch.equal(shards["coset_fft"], plan.coset_fft(x))
+    assert torch.equal(shards["ifft"], x) and torch.equal(shards["coset_ifft"], x)
+
+
+def test_prove_small_legacy_api_on_card(cuda):
+    """The reference's small-circuit prove composed from the legacy API on
+    the card (`tests/test_torch_prove_small.py` `check_legacy_proof`): the
+    vector's circuit gives the vector's bytes, the BLS12-381 m = 26
+    fixture its committed proof, each with the plane prove's sums and h."""
+    from test_torch_prove_small import check_legacy_proof
+
+    with open(os.path.join(VECTORS, "proof_bn254.json")) as f:
+        vector = json.load(f)
+    g16 = Groth16(BN254, device=cuda)
+    pk, _ = g16.circuit_specific_setup(MulChainCircuit(seed=11, n=8, batch=False),
+                                       random.Random(int(vector["setup_seed"])))
+    check_legacy_proof(g16, pk, MulChainCircuit(seed=11, n=8), vector, BN254)
+    with open(os.path.join(VECTORS, "torch_proof_bls12_381_mulchain12.json")) as f:
+        want_bls = json.load(f)
+    check_legacy_proof(Groth16(BLS12_381, device=cuda),
+                       ProvingKey.load(os.path.join(VECTORS, "torch_pk_bls12_381_mulchain12.npz"),
+                                       cuda),
+                       MulChainCircuit(seed=7, n=12), want_bls, BLS12_381)
