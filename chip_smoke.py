@@ -8,8 +8,8 @@ Phases, each printing one JSON line with its wall seconds as it ends:
 0. device: the card's name; `nvidia-smi` name and power limit.
 1. build: one nvcc process per source, all at once, that build every
    kernel (registers and spills per kernel and per called function, from
-   ptxas); the static SASS opcodes of K12-K17 and of every instance of K1
-   and K2 (`cuobjdump -sass`, where the toolkit has it), and for K1, K2
+   ptxas); the static SASS opcodes of K12-K17 and of every instance of K1,
+   K2, K6 and K8 (`cuobjdump -sass`, where the toolkit has it), and for K1, K2
    and the called product (`mont_mul_call`) a summary: registers, spill
    stores, instructions, carry adds beside multiply-adds (`curve_kernels`).
 1b. synthesis: the relations layer on the host. The LC engine's g++ build
@@ -32,7 +32,13 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    and as the Horner chain K18 replaced, which must equal K18: no path
    runs them any more, so their rows report 0 launches on the main path,
    `on_path` false and that chain's counts as `chain_launches`; level 0 of
-   the affine tree at 2^20 points for G1, 2^18 for G2), exact equality;
+   the affine tree at 2^20 points for G1, 2^18 for G2: K6's and K8's rows
+   add the level's pairs (`level0_pairs`) and their static SASS opcodes
+   (`sass_ops`: LDG, STG, LDS, STS, LDGSTS, IMAD), and the line adds K7
+   over the level's whole product tree (`k7_tree`: the batch inverse's
+   own launches, each between two CUDA events, summed by level and in
+   all, the root inverse, the whole tree) beside the batch inverse's host
+   and device times), exact equality;
    K18's row adds its launches in one whole MSM (K18 once, K5 and K2
    unmasked never) and its latency bound (`latency_bound_ms`,
    `horner_bound_ms`, on the product latency K18's latency probe measures
@@ -312,7 +318,10 @@ VPU_KERNELS = ("fma_chain", "sweep_chain", "conv_chain", "mont_mul_chain")
 PARTS_KERNELS = ("reduce_parts_chain", "bisect_chain")
 K1_BN254_G1 = "bucket_madd_rows_kernel<Fp<FqParams>"  # its instances: the body, 0-3
 # the curve kernels and the called product whose SASS the build line counts
-SASS_CURVE_KERNELS = ("bucket_madd_rows", "masked_add", "mont_mul_call")
+# (and K6 and K8, whose rows carry their memory and multiply-add opcodes)
+SASS_CURVE_KERNELS = ("bucket_madd_rows", "masked_add", "mont_mul_call", "affine_phase1",
+                      "affine_phase3")
+SASS_ROW_OPS = ("LDG", "STG", "LDS", "STS", "LDGSTS", "IMAD")  # K6's and K8's rows
 SETUP_SAMPLES = 64  # rows of each table the setup phases check on the host
 WALK_CHECK_LANES = 4096  # lanes of a_tbl's walk held against K1's plain version (64 identity)
 SETUP_KERNELS = ("bucket_madd_rows", "field_ew", "affine_tree_mul")  # K1, K4, K7
@@ -714,6 +723,18 @@ def curve_kernel_summary(ptxas: dict, sass) -> dict:
                         if op.startswith("IMAD") and not op.startswith("IMAD.MOV")),
             "imad_mov": sum(n for op, n in ops.items() if op.startswith("IMAD.MOV")),
         }
+    return out
+
+
+def sass_row_ops(ops: dict) -> dict:
+    """A kernel's static SASS instructions by opcode family (SASS_ROW_OPS;
+    IMAD without IMAD.MOV, which is a move) and in all."""
+    out = {k: 0 for k in SASS_ROW_OPS}
+    for op, n in ops.items():
+        head = op.split(".")[0]
+        if head in out and not op.startswith("IMAD.MOV"):
+            out[head] += n
+    out["all"] = sum(ops.values())
     return out
 
 
@@ -1139,6 +1160,61 @@ def phase_kernels_field16(fr, device) -> list[dict]:
     return rows
 
 
+def k7_tree_ms(den, dinv, group: str, curve, reps: int = 3) -> dict:
+    """K7 over one level's whole product tree: `tree_inverse` on the
+    level's den as `batch_inverse` runs it, with CUDA events around each of
+    its 3·ceil(log2 M) products and its root inverse, so every launch is
+    timed on its real operands (a launch the host fed late also counts
+    the stream's wait for it). The result must equal dinv. -> the
+    up-sweep's widths, each level's three products summed (`level_ms`),
+    the products' sum, the root inverse's, the whole tree between two
+    events (its `torch.cat` copies too) and the launches, each time the
+    mean of `reps` runs after a warm-up."""
+    import torch
+
+    from snark_tpu_torch.ops import msm_affine as A
+
+    one = A.from_words(A._field_one(A.GROUPS[group], A.fields_of(curve)[1], den.device))
+
+    def timed(fn, marks):
+        def run(*args):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            r = fn(*args)
+            b.record()
+            marks.append((a, b))
+            return r
+        return run
+
+    runs = []
+    for _ in range(reps + 1):
+        muls, roots = [], []
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        inv = A.tree_inverse(
+            den, timed(lambda a, b: A.affine_tree_mul(a, b, group, curve=curve), muls),
+            timed(lambda r: A.affine_inverse(r, group, curve), roots), one)
+        t1.record()
+        torch.cuda.synchronize()
+        if not torch.equal(inv, dinv):
+            raise AssertionError(f"k7_tree {group}: the timed tree's inverses differ")
+        runs.append(([a.elapsed_time(b) for a, b in muls],
+                     sum(a.elapsed_time(b) for a, b in roots), t0.elapsed_time(t1)))
+    runs = runs[1:]
+    mul_ms = [sum(r[0][i] for r in runs) / reps for i in range(len(runs[0][0]))]
+    n = len(mul_ms) // 3  # the up-sweep's products widest first, then the down-sweep's pairs
+    level_ms = [mul_ms[i] + mul_ms[3 * n - 2 * (i + 1)] + mul_ms[3 * n - 2 * i - 1]
+                for i in range(n)]
+    root_ms = sum(r[1] for r in runs) / reps
+    widths, w = [], den.shape[0]
+    while w > 1:
+        widths.append((w + 1) // 2)
+        w = widths[-1]
+    return {"widths": widths, "level_ms": level_ms, "mul_sum_ms": sum(mul_ms),
+            "root_inverse_ms": root_ms, "sum_ms": sum(mul_ms) + root_ms,
+            "tree_ms": sum(r[2] for r in runs) / reps, "launches": len(mul_ms) + 1}
+
+
 def phase_kernels_msm(inputs: dict, device) -> tuple[list[dict], dict]:
     """K18 at the bench MSM's combine (its W = 20 window totals, c = 13) and
     on the edge totals, K5 and K2 without a mask one lane at a time and as
@@ -1244,6 +1320,7 @@ def phase_kernels_msm(inputs: dict, device) -> tuple[list[dict], dict]:
         rows.append(kernel_row(
             name("affine_phase1"), affine_src, "snark_tpu/ops/msm_affine.py:329", ms, pms, err,
             M * 4 * K * fq_dec, M * (2 * rb + 2 + el_bytes + 1)))
+        rows[-1]["level0_pairs"] = M
 
         h = M // 2
         a, b = den[:h], den[h:]
@@ -1265,6 +1342,8 @@ def phase_kernels_msm(inputs: dict, device) -> tuple[list[dict], dict]:
         dinv = A.batch_inverse(den, group, curve)
         torch.cuda.synchronize()
         extra[name("batch_inverse_ms")] = (time.time() - t) * 1e3
+        extra[name("batch_inverse_device_ms")] = cuda_ms(lambda: A.batch_inverse(den, group, curve))
+        extra[name("k7_tree")] = k7_tree_ms(den, dinv, group, curve)
         out = A.affine_phase3(blk_rows, sgn, dinv, cls, group, curve)
         ms = cuda_ms(lambda: A.affine_phase3(blk_rows, sgn, dinv, cls, group, curve))
         ref, pms = plain_time(
@@ -1281,6 +1360,7 @@ def phase_kernels_msm(inputs: dict, device) -> tuple[list[dict], dict]:
         rows.append(kernel_row(
             name("affine_phase3"), affine_src, "snark_tpu/ops/msm_affine.py:340", ms, pms, err,
             muls * fq_mul + M * 4 * K * fq_dec, M * (2 * rb + 2 + el_bytes + 1 + rb)))
+        rows[-1]["level0_pairs"] = M
         del blk_rows, sgn, den, cls, dinv, out, ref
         torch.cuda.empty_cache()
     return rows, extra
@@ -2643,6 +2723,10 @@ def main() -> int:
         if row["launches"] == 0 and not off_path:
             raise AssertionError(f"{row['name']} was not launched on the main path")
         row["ptxas"] = build["ptxas"].get(kernel_template(row["name"]))
+        if row["name"].startswith(("affine_phase1", "affine_phase3")):
+            ops = build["sass"].get(kernel_template(row["name"])) if isinstance(
+                build["sass"], dict) else None
+            row["sass_ops"] = sass_row_ops(ops) if ops else None
         if row["name"].startswith("ntt_pass"):
             row["ptxas_dif"] = build["ptxas"].get(
                 kernel_template(row["name"]).replace("false>", "true>"))

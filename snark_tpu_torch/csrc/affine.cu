@@ -44,8 +44,28 @@
 // byte, so K8 is bound by operations and K6 and K7 by bytes. BLS12-381 G1
 // has 588 multiply-adds a product and 25 a decode on rows of 101 bytes and
 // elements of 48: K6 0.4 and K8 10 per byte, K7 4.1 (bytes); its G2
-// doubles the bytes and triples the products. The design is one thread per pair with the
-// pair's two rows read byte by byte and all arithmetic in registers (the
+// doubles the bytes and triples the products.
+//
+// K6 and K8 (affine_kernels.cuh): a block of 128 threads takes a tile of
+// 128 consecutive pairs, one thread a pair. Read a pair at a time, each
+// thread's rows lie 2 rb bytes from its neighbour's (rb = 69, 137, 101,
+// 201), so every byte load of a warp touched 32 sectors, and K8 also wrote
+// its row a byte at a time: L1 wavefronts, not multiply-adds, set their
+// pace (K8 at 8-12% of its bound, K6 at 20-30%). Now the tile's 2 T rows,
+// one span of device memory, and its den or dinv elements are staged in
+// shared memory by 16-byte cp.async copies, neighbouring threads on
+// neighbouring chunks (a span that is not 16-byte aligned, as a view of
+// the rows may be, has its head and tail moved a byte a thread); each
+// thread builds its row's 32-bit words from aligned shared words with
+// funnel shifts; K8 writes its row's words into the shared tile (only the
+// two words it shares with its neighbours a byte at a time) and the block
+// stores the tile, and K6 its den tile, with 16-byte stores. The
+// arithmetic stays in registers, one pair a thread, as before. Shared
+// memory a block: 21.8 KB (BN254 G1) to 63.8 KB (BLS12-381 G2, above 48 KB
+// by the kernel's raised limit). On the H100 K8 runs at 57-69% of its
+// bound and K6 at 79-89% of its bytes bound (PERF.md, section 6).
+//
+// K7 is one thread per element with all arithmetic in registers (the
 // 12-limb product a called function, as in K1). The root inverse runs one
 // lane through the square-and-multiply chain of q - 2, one square per bit
 // and one mul per set bit: 254 and 110 for BN254, 381 and 229 for

@@ -163,6 +163,17 @@ struct Curve<Fp2<P>> {
   }
 };
 
+// A row of the table (see the top): 2 K components of kRowDigits bytes,
+// then the identity flag. K1 and K6-K8 take its layout from here;
+// ops/curve.py row_bytes states the width for the wrappers.
+template <class E>
+struct Rows {
+  static constexpr int kBytes = 2 * Curve<E>::K * Curve<E>::kRowDigits + 1;
+  static constexpr int kFlag = kBytes - 1;
+  static constexpr int kWords = kFlag / 4;  // a row is 4 kWords + 1 bytes
+  static_assert(Curve<E>::kRowDigits % 4 == 2, "rows of 2 K (4 N + 2) + 1 bytes");
+};
+
 template <class E>
 struct Point {
   E x, y, z;
@@ -316,22 +327,16 @@ __device__ __forceinline__ Point<E> pdbl(const Point<E>& p) {
 
 // ---- rows
 
-// One coordinate component of a u8 row: the low 4 N bytes w of x * 2^(8 D),
-// divided by 2^16 mod q in one Montgomery step: m = w n0 mod 2^16 makes
-// w + m q a multiple of 2^16, and (w + m q) / 2^16 < R / 2^16 + q < 2q for
-// any w < R (field.cuh): a lazy value, with no subtraction. Two chains
-// add the low and the high halves of m q (as mont_mul's even and odd), and
-// a funnel shift divides.
+// One coordinate component of a u8 row from its low 4 N bytes w (w[N] is
+// scratch): x * 2^(8 D) divided by 2^16 mod q in one Montgomery step: m =
+// w n0 mod 2^16 makes w + m q a multiple of 2^16, and (w + m q) / 2^16 <
+// R / 2^16 + q < 2q for any w < R (field.cuh): a lazy value, with no
+// subtraction. Two chains add the low and the high halves of m q (as
+// mont_mul's even and odd), and a funnel shift divides.
 template <class P>
-__device__ __forceinline__ Fp<P> decode_component(const uint8_t* src) {
+__device__ __forceinline__ Fp<P> decode_words(uint32_t (&w)[P::N + 1]) {
   constexpr int N = P::N;
   static_assert(P::kLazy, "a decoded value may lie in [q, 2q)");
-  uint32_t w[N + 1];
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    w[j] = (uint32_t)src[4 * j] | ((uint32_t)src[4 * j + 1] << 8) |
-           ((uint32_t)src[4 * j + 2] << 16) | ((uint32_t)src[4 * j + 3] << 24);
-  }
   const uint32_t m = chain::mul_lo(w[0], P::kN0) & 0xffffu;
   w[0] = chain::mad_lo_cc(m, P::p(0), w[0]);
 #pragma unroll
@@ -347,17 +352,23 @@ __device__ __forceinline__ Fp<P> decode_component(const uint8_t* src) {
   return r;
 }
 
-// The inverse of decode_component: D bytes of x * 2^(8 D) mod q (canonical).
+// A component read byte by byte from a row in device memory (K1's gather).
 template <class P>
-__device__ __forceinline__ void encode_component(uint8_t* dst, const Fp<P>& a) {
-  const Fp<P> w = canon(a * load_fp<P>(CurveConsts<P>::mont_to_row()));
+__device__ __forceinline__ Fp<P> decode_component(const uint8_t* src) {
+  uint32_t w[P::N + 1];
 #pragma unroll
   for (int j = 0; j < P::N; ++j) {
-#pragma unroll
-    for (int b = 0; b < 4; ++b) dst[4 * j + b] = (uint8_t)(w.v[j] >> (8 * b));
+    w[j] = (uint32_t)src[4 * j] | ((uint32_t)src[4 * j + 1] << 8) |
+           ((uint32_t)src[4 * j + 2] << 16) | ((uint32_t)src[4 * j + 3] << 24);
   }
-#pragma unroll
-  for (int b = 4 * P::N; b < CurveConsts<P>::kRowDigits; ++b) dst[b] = 0;
+  return decode_words<P>(w);
+}
+
+// The value a row holds for a: the canonical x * 2^(8 D) mod q, whose 4 N
+// bytes and two zero bytes are the component (the inverse of decode_words).
+template <class P>
+__device__ __forceinline__ Fp<P> row_value(const Fp<P>& a) {
+  return canon(a * load_fp<P>(CurveConsts<P>::mont_to_row()));
 }
 
 template <class P>
@@ -372,22 +383,6 @@ __device__ __forceinline__ void decode_row(const uint8_t* row, Fp2<P>& x, Fp2<P>
   constexpr int D = CurveConsts<P>::kRowDigits;
   x = {decode_component<P>(row), decode_component<P>(row + D)};
   y = {decode_component<P>(row + 2 * D), decode_component<P>(row + 3 * D)};
-}
-
-template <class P>
-__device__ __forceinline__ void encode_row(uint8_t* row, const Fp<P>& x, const Fp<P>& y) {
-  constexpr int D = CurveConsts<P>::kRowDigits;
-  encode_component<P>(row, x);
-  encode_component<P>(row + D, y);
-}
-
-template <class P>
-__device__ __forceinline__ void encode_row(uint8_t* row, const Fp2<P>& x, const Fp2<P>& y) {
-  constexpr int D = CurveConsts<P>::kRowDigits;
-  encode_component<P>(row, x.c0);
-  encode_component<P>(row + D, x.c1);
-  encode_component<P>(row + 2 * D, y.c0);
-  encode_component<P>(row + 3 * D, y.c1);
 }
 
 }  // namespace snark

@@ -25,7 +25,7 @@ __global__ void bucket_madd_rows_kernel(
   const int len = length[l];
   const int end = len < i0 + k_steps ? len : i0 + k_steps;
   const uint32_t* run = perm + (size_t)lane_base[l] + start[l];
-  constexpr int flag_at = 2 * Curve<E>::kRowDigits * Curve<E>::K;
+  constexpr int flag_at = Rows<E>::kFlag;
   for (int i = i0; i < end; ++i) {
     const uint32_t pay = run[i];
     const uint8_t* row = table + (size_t)(pay & 0x7fffffffu) * row_bytes;

@@ -42,7 +42,7 @@
 //   lazy (kLazy true, the base fields, p < R/4: BN254 Fq 254 of 256 bits,
 //     BLS12-381 Fq 381 of 384): M = 2p, values in [0, 2p) between
 //     operations. Only what a kernel stores or compares is reduced to [0, p):
-//     store_fp, encode_component (curve.cuh) and Curve::eq call canon, so
+//     store_fp, row_value (curve.cuh) and Curve::eq call canon, so
 //     every stored value is canonical and equals the plain version's.
 // With every operand in [0, M):
 //   add        a + b < 2M <= R: nothing carries out of word N-1; M is taken

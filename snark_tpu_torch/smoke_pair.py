@@ -7,17 +7,20 @@ Runs phases of `chip_smoke.py` from another checkout of the repository
 this one, each run a process of its own, in the order other, this, this,
 other: both trees meet the same card, clocks and neighbours, and a drift
 over the call shows as a difference between the two runs of one tree.
-PHASES is a comma-separated subset of kernels, prove_full, setup_full,
-prove_setup, msm_bench, kernels_bls, prove_full_bls, setup_full_bls,
-prove_setup_bls, msm_bench_bls, bench_madd_parts (default: all of them;
+PHASES is a comma-separated subset of kernels, prove_full,
+prove_full_affine, setup_full, prove_setup, msm_bench, kernels_bls,
+prove_full_bls, prove_full_affine_bls, setup_full_bls, prove_setup_bls,
+msm_bench_bls, bench_madd_parts (default: all of them; prove_full_affine is
+the prove with `affine_msm=True`;
 a tree whose chip_smoke.py has no setup phases skips those). Each run
 builds its tree's kernels first (both trees' builds run together before
 the first turn), calls that tree's own phase functions and prints their
 JSON lines; this process tags every line with its tree and turn and
 prints at the end one JSON line `{"pair": ...}`: for each kernel row, ms
 in the four turns (K3's also a transform, the h pipeline and one stage);
-for each msm_bench record, adds/s and its `stage_ms.combine`; the `h`
-and `msm *` stages of the proves; the setups' stages; the K1 scans of
+the batch-affine tree's inverse times of the kernels lines; for each
+msm_bench record, adds/s and its `stage_ms.combine`; each prove's seconds
+and its `h` and `msm *` stages; the setups' stages; the K1 scans of
 bench_madd_parts. Every number is measured on the card by the phase that
 prints it. Exits non-zero if a run fails. Needs one card.
 """
@@ -30,9 +33,9 @@ import subprocess
 import sys
 import time
 
-PHASES = ("kernels", "prove_full", "setup_full", "prove_setup", "msm_bench", "kernels_bls",
-          "prove_full_bls", "setup_full_bls", "prove_setup_bls", "msm_bench_bls",
-          "bench_madd_parts")
+PHASES = ("kernels", "prove_full", "prove_full_affine", "setup_full", "prove_setup", "msm_bench",
+          "kernels_bls", "prove_full_bls", "prove_full_affine_bls", "setup_full_bls",
+          "prove_setup_bls", "msm_bench_bls", "bench_madd_parts")
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # Run in each tree with that tree's chip_smoke.py: the phase functions and
@@ -73,7 +76,8 @@ for curve, n_full, sfx in ((BN254, S.FULL_N, ""), (BLS12_381, S.FULL_N_BLS, "_bl
         from snark_tpu_torch.groth16 import synthesize_witness
         z = synthesize_witness(circuit, curve)
     pooled = {}
-    if phases & {"kernels" + sfx, "prove_full" + sfx, "msm_bench" + sfx}:
+    if phases & {"kernels" + sfx, "prove_full" + sfx, "prove_full_affine" + sfx,
+                 "msm_bench" + sfx}:
         key = S.SyntheticKey(n_full, seed=1, device=device, curve=curve)
         inputs = {g: B.make_inputs(S.BENCH_LOG_N[g], signed=True, c=S.BENCH_C, group=g,
                                    device=device, curve=curve) for g in ("g1", "g2")}
@@ -88,6 +92,10 @@ for curve, n_full, sfx in ((BN254, S.FULL_N, ""), (BLS12_381, S.FULL_N_BLS, "_bl
             info, _, _ = S.phase_prove_full(key, z, device)
             pooled = info["stage_ms"]
             line("prove_full" + sfx, t0, **info)
+        if "prove_full_affine" + sfx in phases:
+            t0 = time.time()
+            info, _, _ = S.phase_prove_full(key, z, device, affine_msm=True)
+            line("prove_full_affine" + sfx, t0, **info)
         if "msm_bench" + sfx in phases:
             t0 = time.time()
             info, _ = S.phase_msm_bench(inputs, smi, unsigned=not sfx)
@@ -138,8 +146,9 @@ def build_both(trees: list[str]) -> None:
 
 def summary(runs: list[list[dict]]) -> dict:
     """The numbers to compare, each a list over the four turns."""
-    out: dict = {"kernel_ms": {}, "msm_adds_per_s": {}, "msm_combine_ms": {},
-                 "prove_stage_ms": {}, "k1_scan_ms": {}, "setup_stage_ms": {}}
+    out: dict = {"kernel_ms": {}, "affine_tree_ms": {}, "msm_adds_per_s": {},
+                 "msm_combine_ms": {}, "prove_s": {}, "prove_stage_ms": {}, "k1_scan_ms": {},
+                 "setup_stage_ms": {}}
 
     def put(table, name, turn, v):
         table.setdefault(name, [None] * len(runs))[turn] = v
@@ -152,7 +161,12 @@ def summary(runs: list[list[dict]]) -> dict:
                 for extra in ("transform_ms", "h_ms", "ntt_stage_ms"):  # K3's pass kernel
                     if extra in row:
                         put(out["kernel_ms"], f"{row['name']} {extra}", turn, row[extra])
+            for key, v in rec.items():  # the kernels lines' batch-affine tree
+                if key.startswith(("batch_inverse", "root_inverse", "k7_tree")):
+                    put(out["affine_tree_ms"], key, turn, v["sum_ms"] if isinstance(v, dict) else v)
             if phase and phase.startswith(("prove_full", "prove_setup")):
+                if "prove_seconds" in rec:
+                    put(out["prove_s"], phase, turn, rec["prove_seconds"])
                 for stage, ms in rec["stage_ms"].items():
                     if stage.startswith("msm") or stage == "h":
                         put(out["prove_stage_ms"], f"{phase} {stage}", turn, ms)

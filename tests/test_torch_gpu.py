@@ -259,6 +259,46 @@ def test_affine_kernels_match_plain(cuda, group, curve):
     assert torch.equal(nxt, A.affine_phase1_plain(out, None, group, curve)[0])
 
 
+@pytest.mark.parametrize("curve", [BN254, BLS12_381], ids=["bn254", "bls12_381"])
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_affine_tiles_match_plain(cuda, group, curve):
+    """K6 and K8 at their tiles' edges (T = 128 pairs a block) against the
+    plain versions: M = 1, T − 1, T, T + 1 and an odd M above 10^5; the
+    rows a view two rows into their tensor (not 16-byte aligned), the sign
+    bytes a view three bytes in, dinv four bytes off 16; with sign bytes
+    and without; the first tile holds all five classes."""
+    T, big_m = 128, 100_003
+    hc = host_g1(curve) if group == "g1" else host_g2(curve)
+    rng = random.Random(5)
+    base = [hc.scalar_mul(hc.generator, rng.randrange(1, curve.fr.modulus)) for _ in range(7)]
+    pool = torch.as_tensor(
+        C.pack_rows_u8(base + [hc.neg(p) for p in base] + [None, None], group, curve), device=cuda)
+    g = torch.Generator().manual_seed(5)
+    idx = torch.randint(0, 16, (2 * big_m + 2,), generator=g)
+    # pairs 0-5 of the first tile: add, double, P + (−P), copy left, copy
+    # right, two identities
+    idx[2 : 2 + 12] = torch.tensor([0, 1, 2, 2, 3, 10, 4, 14, 15, 5, 14, 15])
+    table = pool[idx.to(cuda)]
+    signs = torch.randint(0, 2, (2 * big_m + 3,), generator=g).to(torch.uint8).to(cuda)
+    for m in (1, T - 1, T, T + 1, big_m):
+        rows = table[2 : 2 + 2 * m]
+        assert rows.data_ptr() % 16
+        for sgn in (signs[3 : 3 + 2 * m], None):
+            den, cls = A.affine_phase1(rows, sgn, group, curve)
+            pden, pcls = A.affine_phase1_plain(rows, sgn, group, curve)
+            assert torch.equal(den, pden) and torch.equal(cls, pcls), (m, sgn is None)
+            if m >= T and sgn is None:
+                assert set(cls[:T].tolist()) == {A.ADD, A.DOUBLE, A.DEAD, A.COPY_L, A.COPY_R}
+            dinv = A.batch_inverse(den, group, curve)
+            buf = torch.empty(dinv.numel() + 1, dtype=torch.int32, device=cuda)
+            dinv_off = buf[1:].view(dinv.shape)
+            dinv_off.copy_(dinv)
+            assert dinv_off.data_ptr() % 16
+            out = A.affine_phase3(rows, sgn, dinv_off, cls, group, curve)
+            want = A.affine_phase3_plain(rows, sgn, dinv, cls, group, curve)
+            assert torch.equal(out, want), (m, sgn is None)
+
+
 @pytest.mark.parametrize("group", ["g1", "g2"])
 @pytest.mark.parametrize("affine", [False, True])
 def test_device_msm_matches_host(cuda, group, affine):
