@@ -262,6 +262,20 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    line, one row a part, with the time of each part's whole main scan
    beside the shipped K1's.
 
+17. tools: the reference's remaining entry point, profilers, scripts and
+   examples on the port. `snark_tpu_torch.entry` on the card (the prover's
+   device core on the MulChain(5, 8) key): its five sums equal, as affine
+   points, those of the same entry run on the CPU (the plain versions).
+   Then each tool's `main` at a reduced size (TOOL_ARGS: profile_setup,
+   profile_msm, profile_scan_parts, profile_affine_stages,
+   profile_affine_front, profile_prover_msms, bench_affine_msm,
+   bench_scan_overlap, bench_gather, bench_synth at 2^16, run_suite on one
+   GPU test file, gen_vectors into a temporary directory, whose files
+   must equal the committed `tests/vectors/*.json`) and the three examples
+   (bench_synthesis at 2^14): one line a tool with its seconds, its exit
+   code and its JSON records; any `correct`, `equal` or
+   `g2_affine_correct` that is false, or a non-zero exit, fails the phase.
+
 The last line is `{"ok": true, "device": {...}}`, printed only when every
 phase passed; any failure exits non-zero. No card: exit 1, no result.
 """
@@ -2496,6 +2510,95 @@ def phase_bench_madd_parts(smi: str, device, sass) -> tuple[dict, list[dict]]:
     return info, rows
 
 
+# each tool's arguments in the tools phase: reduced sizes, about 10 s each
+TOOL_ARGS = (
+    ("profile_setup", ["--log-n", "12", "--curve", "bls", "--top", "10"]),
+    ("profile_msm", ["--log-n", "16", "--iters", "3"]),
+    ("profile_scan_parts", ["--log-n", "16", "--iters", "3"]),
+    ("profile_affine_stages", ["--log-n", "16", "--iters", "3"]),
+    ("profile_affine_front", ["--log-n", "16", "--iters", "3"]),
+    ("profile_prover_msms", ["--log-n", "12", "--iters", "3"]),
+    ("bench_affine_msm", ["--log-n", "16", "--iters", "2", "--g2-log-n", "12"]),
+    ("bench_scan_overlap", ["--log-table", "18", "--steps", "16"]),
+    ("bench_gather", ["--log-table", "18", "--log-m", "14"]),
+    ("bench_synth", ["16"]),
+)
+TOOL_FLAGS = ("correct", "equal", "g2_affine_correct")
+EXAMPLE_SYNTH_LOG_N = 14
+GEN_VECTORS_FILES = 7  # the committed tests/vectors/*.json the scripts write
+
+
+def run_tool(name: str, fn, expect: str = "") -> dict:
+    """fn() with its standard output captured -> {"tool", "seconds", "rc",
+    "records": its JSON lines}; raises on a non-zero exit, a false
+    correctness flag or an output without `expect`."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = fn()
+    out = buf.getvalue()
+    records = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    line = {"tool": name, "seconds": round(time.time() - t0, 3), "rc": rc, "records": records}
+    bad = [f for r in records for f in TOOL_FLAGS if r.get(f) is False]
+    if rc not in (0, None) or bad or expect not in out:
+        raise AssertionError(f"tool {name}: exit {rc}, false flags {bad}\n{out[-4000:]}")
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def phase_tools(smi: str) -> dict:
+    """The entry on the card against the CPU, the tools and the examples."""
+    import importlib
+    import shutil
+
+    from snark_tpu_torch import entry as E
+    from snark_tpu_torch import gen_vectors, run_suite
+    from snark_tpu_torch.examples import bench_synthesis, non_satisfiable, satisfiable
+
+    t0 = time.time()
+    fn, args = E.entry()
+    card_sums = E.sums(*fn(*args))
+    t_card = time.time() - t0
+    fn_cpu, args_cpu = E.entry("cpu")
+    if args_cpu != args or E.sums(*fn_cpu(*args_cpu)) != card_sums:
+        raise AssertionError("entry: the card's five sums differ from the CPU's")
+    info = {"entry": {"equal": True, "card_s": round(t_card, 3),
+                      "seconds": round(time.time() - t0, 3)}, "nvidia_smi": smi, "tools": {}}
+    print(json.dumps({"tool": "entry", **info["entry"]}), flush=True)
+    for name, argv in TOOL_ARGS:
+        mod = importlib.import_module(f"snark_tpu_torch.{name}")
+        info["tools"][name] = run_tool(name, lambda: mod.main(argv))["seconds"]
+    info["tools"]["run_suite"] = run_tool("run_suite", lambda: run_suite.main([
+        "--device", "cuda", "--files", "tests/test_torch_gpu.py", "-m", "gpu", "--noconftest",
+        "-p", "no:cacheprovider", "-k", "field_ew"]))["seconds"]
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_vectors_")
+    try:
+        line = run_tool("gen_vectors", lambda: gen_vectors.main([out_dir]))
+        info["tools"]["gen_vectors"] = line["seconds"]
+        files = line["records"][0]["files"]
+        if sorted(os.listdir(out_dir)) != files or len(files) != GEN_VECTORS_FILES:
+            raise AssertionError(f"gen_vectors wrote {sorted(os.listdir(out_dir))}")
+        for fname in files:
+            with open(os.path.join(out_dir, fname), "rb") as got, \
+                    open(os.path.join(HERE, "tests", "vectors", fname), "rb") as want:
+                if got.read() != want.read():
+                    raise AssertionError(f"gen_vectors: {fname} differs from the committed file")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for name, fn, expect in (
+        ("satisfiable", satisfiable.main, "satisfied:   True"),
+        ("non_satisfiable", non_satisfiable.main,
+         "Error originated in constraint:\n  0: x^3 + x + 5 == y at "),
+        ("bench_synthesis", lambda: bench_synthesis.main([str(EXAMPLE_SYNTH_LOG_N)]),
+         "native-engine random-LC"),
+    ):
+        info["tools"][f"examples.{name}"] = run_tool(f"examples.{name}", fn, expect)["seconds"]
+    return info
+
+
 def main() -> int:
     import torch
 
@@ -2679,6 +2782,9 @@ def main() -> int:
     t0 = time.time()
     info_k, madd_rows = phase_bench_madd_parts(smi, device, build["sass"])
     phase_line("bench_madd_parts", t0, **info_k)
+
+    t0 = time.time()
+    phase_line("tools", t0, **phase_tools(smi))
 
     # each row's launches from the run of its path: the prove's, the MSM
     # bench's, bench_field's for K9 and K10 (K11's, K12-K17's and K1's

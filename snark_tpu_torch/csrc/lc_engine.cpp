@@ -9,7 +9,10 @@
 // coefficient, sort + merge per row) over the columnar CSR arrays with
 // 4x64-bit Montgomery coefficient arithmetic.
 //
-// The port's copy holds the inline pass only.
+// The port's copy holds the whole engine: the inline pass, the batched
+// row evaluator (lc_eval_rows) and the seeded random-LC synthesizer
+// (lc_synth_*), whose splitmix64 stream gives the same arrays as the
+// repository's native/lc_engine.cpp for the same arguments.
 //
 // ABI (ctypes): plain C functions, caller-owned numpy buffers in, an opaque
 // result handle out (two-phase fetch because output nnz is data-dependent).
@@ -21,6 +24,7 @@
 #include <cstdint>
 #include <cstring>
 #include <vector>
+#include <thread>
 
 typedef unsigned __int128 u128;
 
@@ -237,5 +241,212 @@ void lc_inline_fetch(const FieldCtx *ctx, void *handle, int64_t *out_offsets,
 
 void lc_inline_free(void *handle) { delete (InlineResult *)handle; }
 
+// Batched sparse-row dot products: evaluate each LC against an assignment
+// (canonical 4x64 values), used by satisfiability checking at scale.
+void lc_eval_rows(const FieldCtx *ctx, int64_t n, const int64_t *offsets,
+                  const uint64_t *vars, const uint32_t *coeff_ids,
+                  int64_t num_values, const uint64_t *values,
+                  int64_t num_cols,
+                  const uint64_t *assignment /* (num_cols x 4) by global
+                  column index; caller maps entries to columns */,
+                  const int64_t *var_to_col, uint64_t *out /* n x 4 */) {
+    const FieldCtx &f = *ctx;
+    (void)vars;
+    std::vector<Fp4> vals_m((size_t)num_values);
+    for (int64_t i = 0; i < num_values; ++i) {
+        Fp4 v;
+        std::memcpy(v.v, values + 4 * i, 32);
+        vals_m[(size_t)i] = mont_mul(v, f.r2, f);
+    }
+    // pre-convert the assignment ONCE (the per-term conversion doubled
+    // the Montgomery-mul count at 2^23 scale)
+    std::vector<Fp4> asg_m((size_t)num_cols);
+    for (int64_t i = 0; i < num_cols; ++i) {
+        Fp4 v;
+        std::memcpy(v.v, assignment + 4 * i, 32);
+        asg_m[(size_t)i] = mont_mul(v, f.r2, f);
+    }
+    auto run_range = [&](int64_t lo, int64_t hi) {
+        Fp4 one{{1, 0, 0, 0}};
+        for (int64_t i = lo; i < hi; ++i) {
+            Fp4 acc{{0, 0, 0, 0}};
+            for (int64_t k = offsets[i]; k < offsets[i + 1]; ++k) {
+                int64_t col = var_to_col[k];
+                if (col < 0) continue; // Zero variable
+                Fp4 prod = mont_mul(vals_m[coeff_ids[k]], asg_m[(size_t)col], f);
+                add_mod(acc, prod, f);
+            }
+            // acc = sum(a*b*R); one extra reduction by ONE strips the R
+            Fp4 canon = mont_mul(acc, one, f);
+            std::memcpy(out + 4 * i, canon.v, 32);
+        }
+    };
+    unsigned hw = std::thread::hardware_concurrency();
+    int64_t nthreads = hw ? (int64_t)hw : 1;
+    if (nthreads > 1 && n >= 4096) {
+        std::vector<std::thread> ts;
+        int64_t chunk = (n + nthreads - 1) / nthreads;
+        for (int64_t t = 0; t < nthreads; ++t) {
+            int64_t lo = t * chunk, hi = std::min(n, lo + chunk);
+            if (lo < hi) ts.emplace_back(run_range, lo, hi);
+        }
+        for (auto &t : ts) t.join();
+    } else {
+        run_range(0, n);
+    }
+}
+
 size_t lc_field_ctx_size() { return sizeof(FieldCtx); }
+}
+
+// ---------------------------------------------------------------------------
+// Native random-LC synthesis (the bench.rs workload, relations/examples/
+// bench.rs:85-109): n constraints x 3 argument LCs of 1..T random terms,
+// coefficient interning through a real hash map, columnar CSR output
+// (synthesis at 2^23 constraints).
+// ---------------------------------------------------------------------------
+
+namespace {
+
+struct Fp4Hash {
+    size_t operator()(const Fp4 &a) const {
+        uint64_t h = 0x9e3779b97f4a7c15ULL;
+        for (int i = 0; i < 4; ++i) {
+            h ^= a.v[i] + 0x9e3779b97f4a7c15ULL + (h << 6) + (h >> 2);
+        }
+        return (size_t)h;
+    }
+};
+struct Fp4Eq {
+    bool operator()(const Fp4 &a, const Fp4 &b) const {
+        return std::memcmp(a.v, b.v, 32) == 0;
+    }
+};
+
+struct SynthResult {
+    std::vector<int64_t> offsets;   // (num_lcs + 1)
+    std::vector<uint64_t> vars;     // nnz
+    std::vector<uint32_t> coeff_ids;
+    std::vector<Fp4> values;        // interner table (canonical)
+    std::vector<uint64_t> arg_vars; // 3n argument variables
+};
+
+inline uint64_t splitmix64(uint64_t &s) {
+    uint64_t z = (s += 0x9e3779b97f4a7c15ULL);
+    z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ULL;
+    z = (z ^ (z >> 27)) * 0x94d049bb133111ebULL;
+    return z ^ (z >> 31);
+}
+
+} // namespace
+
+
+extern "C" {
+
+// Synthesize n random R1CS constraints: per constraint 3 LCs with
+// 1..terms random (coeff, witness-var) terms. lc_base / id_base offset the
+// emitted symbolic-LC handles and interner ids past the caller's existing
+// LC0 / pre-interned {1, -1}. Witness handles are tag-3 over [0, num_vars).
+void *lc_synth_random(const FieldCtx *ctx, int64_t n, int32_t terms,
+                      uint64_t seed, int64_t num_vars, int64_t lc_base,
+                      int64_t id_base) {
+    const FieldCtx &f = *ctx;
+    auto *res = new SynthResult();
+    res->offsets.reserve((size_t)(3 * n + 1));
+    res->offsets.push_back(0);
+    size_t est = (size_t)(3 * n) * (size_t)(terms / 2 + 1);
+    res->vars.reserve(est);
+    res->coeff_ids.reserve(est);
+    res->arg_vars.reserve((size_t)(3 * n));
+    // open-addressed interner (ark-relations uses IndexMap + foldhash for
+    // the same reason: std::unordered_map's node allocations dominate)
+    size_t cap = 1;
+    while (cap < 2 * est) cap <<= 1;
+    std::vector<uint32_t> slots(cap, 0xFFFFFFFFu);
+    const size_t mask = cap - 1;
+    uint64_t s = seed ^ 0xdeadbeefcafef00dULL;
+    const uint64_t WITNESS_TAG = 3ULL << TAG_SHIFT;
+    int64_t next_lc = lc_base;
+    for (int64_t i = 0; i < n; ++i) {
+        for (int a = 0; a < 3; ++a) {
+            int k = 1 + (int)(splitmix64(s) % (uint64_t)terms);
+            for (int t = 0; t < k; ++t) {
+                Fp4 c{{splitmix64(s), splitmix64(s), splitmix64(s),
+                       splitmix64(s)}};
+                while (geq(c, f.p)) sub_in_place(c, f.p);
+                if (!(c.v[0] | c.v[1] | c.v[2] | c.v[3])) c.v[0] = 1;
+                size_t slot = Fp4Hash()(c) & mask;
+                uint32_t id;
+                for (;;) {
+                    uint32_t cur = slots[slot];
+                    if (cur == 0xFFFFFFFFu) {
+                        id = (uint32_t)(id_base + (int64_t)res->values.size());
+                        slots[slot] = (uint32_t)res->values.size();
+                        res->values.push_back(c);
+                        break;
+                    }
+                    if (Fp4Eq()(res->values[cur], c)) {
+                        id = (uint32_t)(id_base + cur);
+                        break;
+                    }
+                    slot = (slot + 1) & mask;
+                }
+                uint64_t var =
+                    WITNESS_TAG | (splitmix64(s) % (uint64_t)num_vars);
+                res->vars.push_back(var);
+                res->coeff_ids.push_back(id);
+            }
+            // canonicalize exactly like new_lc_add_helper: a 1-term LC
+            // with coefficient one is a passthrough (probability ~2^-254
+            // here, but semantics matter)
+            int64_t start = res->offsets.back();
+            int64_t end = (int64_t)res->vars.size();
+            bool passthrough = false;
+            if (end - start == 1) {
+                Fp4 one{{1, 0, 0, 0}};
+                int64_t vid = res->coeff_ids[(size_t)start] - id_base;
+                if (vid >= 0 &&
+                    Fp4Eq()(res->values[(size_t)vid], one)) {
+                    res->arg_vars.push_back(res->vars[(size_t)start]);
+                    res->vars.pop_back();
+                    res->coeff_ids.pop_back();
+                    passthrough = true;
+                }
+            }
+            if (!passthrough) {
+                res->offsets.push_back(end);
+                res->arg_vars.push_back((4ULL << TAG_SHIFT) |
+                                        (uint64_t)next_lc);
+                ++next_lc;
+            }
+        }
+    }
+    return res;
+}
+
+int64_t lc_synth_num_lcs(void *h) {
+    return (int64_t)((SynthResult *)h)->offsets.size() - 1;
+}
+int64_t lc_synth_nnz(void *h) {
+    return (int64_t)((SynthResult *)h)->vars.size();
+}
+int64_t lc_synth_num_values(void *h) {
+    return (int64_t)((SynthResult *)h)->values.size();
+}
+
+void lc_synth_fetch(void *h, int64_t *offsets, uint64_t *vars,
+                    uint32_t *coeff_ids, uint64_t *values,
+                    uint64_t *arg_vars) {
+    auto *res = (SynthResult *)h;
+    std::memcpy(offsets, res->offsets.data(),
+                res->offsets.size() * sizeof(int64_t));
+    std::memcpy(vars, res->vars.data(), res->vars.size() * sizeof(uint64_t));
+    std::memcpy(coeff_ids, res->coeff_ids.data(),
+                res->coeff_ids.size() * sizeof(uint32_t));
+    std::memcpy(values, res->values.data(), res->values.size() * 32);
+    std::memcpy(arg_vars, res->arg_vars.data(),
+                res->arg_vars.size() * sizeof(uint64_t));
+}
+
+void lc_synth_free(void *h) { delete (SynthResult *)h; }
 }

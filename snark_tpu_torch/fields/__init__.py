@@ -14,7 +14,7 @@ from .params import (
     get_curve,
     get_field,
 )
-from .host import Fp
+from .host import Fp, FpElem
 from .towers import Fq2, Fq6, Fq12, make_tower
 
 
@@ -58,6 +58,7 @@ __all__ = [
     "CurveParams",
     "FieldParams",
     "Fp",
+    "FpElem",
     "Fq2",
     "Fq6",
     "Fq12",

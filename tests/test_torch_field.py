@@ -226,7 +226,8 @@ def test_port_imports_no_jax():
     relations layer, the circuits, the utilities, the SNARK trait layer,
     the batched prover, the configuration runner, the legacy device API
     (curve, MSM and NTT plans, the witness map, the legacy distributed MSM
-    and NTT) and configuration 4's single-card modules among them."""
+    and NTT), configuration 4's single-card modules, the entry, the
+    profilers, the remaining scripts and the examples among them."""
     walked = {os.path.relpath(path, ROOT) for path in _port_sources()}
     relations = ("__init__", "assignment", "constraint_system", "constraint_system_ref",
                  "error", "field_interner", "gadgets", "instance_outliner", "lc_map",
@@ -244,7 +245,12 @@ def test_port_imports_no_jax():
                 "parallel/plane_dist.py", "dryrun.py", "ops/__init__.py", "ops/curve_u32.py",
                 "ops/msm_u32.py", "ops/ntt_u32.py", "groth16/qap.py", "groth16/__init__.py",
                 "parallel/dist_msm.py", "parallel/dist_ntt.py", "config4_e2e.py",
-                "config4_shards.py"):
+                "config4_shards.py", "entry.py", "toolkit.py", "profile_setup.py",
+                "profile_msm.py", "profile_scan_parts.py", "profile_affine_stages.py",
+                "profile_affine_front.py", "profile_prover_msms.py", "bench_affine_msm.py",
+                "bench_scan_overlap.py", "bench_gather.py", "bench_synth.py", "run_suite.py",
+                "gen_vectors.py", "examples/__init__.py", "examples/satisfiable.py",
+                "examples/non_satisfiable.py", "examples/bench_synthesis.py"):
         assert os.path.join("snark_tpu_torch", mod) in walked, mod
     bad = []
     for path in _port_sources():

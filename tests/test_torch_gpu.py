@@ -907,3 +907,17 @@ def test_prove_small_legacy_api_on_card(cuda):
                        ProvingKey.load(os.path.join(VECTORS, "torch_pk_bls12_381_mulchain12.npz"),
                                        cuda),
                        MulChainCircuit(seed=7, n=12), want_bls, BLS12_381)
+
+
+def test_entry_on_card_equals_cpu(cuda):
+    """The single-device entry (`snark_tpu_torch/entry.py`): its core on the
+    card gives the five sums of its core on the CPU (the plain versions), as
+    affine points; its outputs stay on the card."""
+    from snark_tpu_torch.entry import entry, sums
+
+    fn, args = entry()
+    g1, g2 = fn(*args)
+    assert g1.device.type == "cuda" and g2.device.type == "cuda"
+    fn_cpu, args_cpu = entry("cpu")
+    assert args == args_cpu
+    assert sums(g1, g2) == sums(*fn_cpu(*args_cpu))
