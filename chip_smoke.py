@@ -34,11 +34,16 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    `on_path` false and that chain's counts as `chain_launches`; level 0 of
    the affine tree at 2^20 points for G1, 2^18 for G2: K6's and K8's rows
    add the level's pairs (`level0_pairs`) and their static SASS opcodes
-   (`sass_ops`: LDG, STG, LDS, STS, LDGSTS, IMAD), and the line adds K7
-   over the level's whole product tree (`k7_tree`: the batch inverse's
-   own launches, each between two CUDA events, summed by level and in
-   all, the root inverse, the whole tree) beside the batch inverse's host
-   and device times), exact equality;
+   (`sass_ops`: LDG, STG, LDS, STS, LDGSTS, IMAD); the level's batch
+   inverse is K19 (`affine_batch_inverse`: three launches a call, no other
+   kernel, equal to its plain version at the level's width and at the
+   edges of its indexing, den·dinv = 1; its row adds `bound_with_root_ms`,
+   the bound plus the root inverse's latency, and the ptxas of its three
+   kernels), and the line adds the former batch inverse, K7 over the
+   level's whole product tree (`k7_tree`: each launch between two CUDA
+   events, summed by level and in all, the root inverse, the whole tree;
+   it must equal K19's dinv) beside the batch inverse's host and device
+   times), exact equality;
    K18's row adds its launches in one whole MSM (K18 once, K5 and K2
    unmasked never) and its latency bound (`latency_bound_ms`,
    `horner_bound_ms`, on the product latency K18's latency probe measures
@@ -93,11 +98,11 @@ Phases, each printing one JSON line with its wall seconds as it ends:
 5b. setup_full: the Groth16 setup of MulChain(FULL_SEED, FULL_N) on the
    card, `circuit_specific_setup(circuit, random.Random(FULL_SEED))` with
    want_query=False: the circuit's synthesis (`synthesize_ms`), the device QAP
-   (K4), each query's fixed-base walk (one K1 launch) and affine codec (K7
-   batch inverse and products). Its line: stage wall times (the generator
+   (K4), each query's fixed-base walk (one K1 launch) and affine codec (K19
+   batch inverse, K7 products). Its line: stage wall times (the generator
    tables on the host, the QAP, each query's walk and codec, the vk,
    total), peak device memory (also less what the smoke held before the
-   setup), the launches (K1's, K4's and K7's go into
+   setup), the launches (K1's, K4's, K7's and K19's go into
    the kernel line as `setup_launches`). Checks: SETUP_SAMPLES rows of
    each table, decoded, equal the host scalar multiplication of the
    generator by that row's scalar, read back from the device QAP and
@@ -338,7 +343,8 @@ SASS_CURVE_KERNELS = ("bucket_madd_rows", "masked_add", "mont_mul_call", "affine
 SASS_ROW_OPS = ("LDG", "STG", "LDS", "STS", "LDGSTS", "IMAD")  # K6's and K8's rows
 SETUP_SAMPLES = 64  # rows of each table the setup phases check on the host
 WALK_CHECK_LANES = 4096  # lanes of a_tbl's walk held against K1's plain version (64 identity)
-SETUP_KERNELS = ("bucket_madd_rows", "field_ew", "affine_tree_mul")  # K1, K4, K7
+SETUP_KERNELS = ("bucket_madd_rows", "field_ew", "affine_tree_mul",
+                 "affine_batch_inverse")  # K1, K4, K7, K19
 SYNTH_CHAIN_LCS = 1 << 16  # LCs of the synthesis phase's chain
 BATCH_LOG_N, BATCH_PROOFS = 18, 32  # configuration 5 in batch_config5
 DIST_RANKS = (1, 2)  # dist_prove's worlds: NCCL at one rank, gloo at two on the one card
@@ -613,6 +619,7 @@ def kernel_template(name: str) -> str:
         return f"{base}_kernel<{bls}FrParams>"
     base, group = base.rsplit("_", 1)
     base = "masked_add" if base == "point_add" else base
+    base = "affine_inverse_up" if base == "affine_batch_inverse" else base  # and top, down
     part = ", 0" if base == "bucket_madd_rows" else ""  # the shipped body
     return f"{base}_kernel<{'Fp2' if group == 'g2' else 'Fp'}<{bls}FqParams>{part}>"
 
@@ -1186,9 +1193,10 @@ def k7_tree_ms(den, dinv, group: str, curve, reps: int = 3) -> dict:
     mean of `reps` runs after a warm-up."""
     import torch
 
+    from snark_tpu_torch.fields.limbs import fields_of
     from snark_tpu_torch.ops import msm_affine as A
 
-    one = A.from_words(A._field_one(A.GROUPS[group], A.fields_of(curve)[1], den.device))
+    one = A.from_words(A._field_one(A.GROUPS[group], fields_of(curve)[1], den.device))
 
     def timed(fn, marks):
         def run(*args):
@@ -1227,6 +1235,45 @@ def k7_tree_ms(den, dinv, group: str, curve, reps: int = 3) -> dict:
     return {"widths": widths, "level_ms": level_ms, "mul_sum_ms": sum(mul_ms),
             "root_inverse_ms": root_ms, "sum_ms": sum(mul_ms) + root_ms,
             "tree_ms": sum(r[2] for r in runs) / reps, "launches": len(mul_ms) + 1}
+
+
+def batch_inverse_row(den, dinv, group: str, curve, source: str, name, mul_imads: int,
+                      el_bytes: int, root_ms: float) -> dict:
+    """K19 (`affine_batch_inverse`) at a level's width: equal to its plain
+    version (on the card) there and at the edges of its indexing (M = 1, 2,
+    3, C − 1, C, C + 1, T·C − 1, T·C + 1, 3·T·C + 5, and kTop + 3 block
+    products), den·dinv = 1; its time, its plain version's, three launches a
+    call. `bound_ms` is the larger of the products' (3(M − 1) products)
+    and the bytes' (den read, dinv written); `bound_with_root_ms` adds the
+    root inverse's latency (`root_ms`, K7 mode 1 on one element, the same
+    `fermat_inv`)."""
+    import torch
+
+    from snark_tpu_torch.fields.limbs import fields_of
+    from snark_tpu_torch.ops import msm_affine as A
+
+    M, K, L = den.shape
+    T, C, top = A.INVERSE_SIZES[(curve.name, group)]
+    fq = fields_of(curve)[1]
+    one = torch.zeros((1, K, L), dtype=torch.int32, device=den.device)
+    one[0, 0] = fq.const(1, den.device)
+    if not torch.equal(A.affine_tree_mul(den, dinv, group, curve=curve), one.expand_as(den)):
+        raise AssertionError(f"{name('affine_batch_inverse')}: den·dinv is not one")
+    ref, pms = plain_time(lambda: A.affine_batch_inverse_plain(den, group, curve))
+    err = max_abs_err(dinv, ref)
+    del ref
+    edges = [1, 2, 3, C - 1, C, C + 1, T * C - 1, T * C + 1, 3 * T * C + 5, (top + 3) * T * C - 11]
+    for m in edges:
+        part = den[:m].contiguous()
+        max_abs_err(A.affine_batch_inverse(part, group, curve),
+                    A.affine_batch_inverse_plain(part, group, curve))
+    row = kernel_row(name("affine_batch_inverse"), source, "snark_tpu/ops/msm_affine.py:508",
+                     cuda_ms(lambda: A.affine_batch_inverse(den, group, curve), reps=10), pms, err,
+                     3 * (M - 1) * mul_imads, 2 * M * el_bytes)
+    row.update(pairs=M, threads=T, chunk=C, top_threads=top, blocks=-(-M // (T * C)),
+               launches_per_call=3, edge_sizes=edges, root_inverse_ms=root_ms,
+               bound_with_root_ms=row["bound_ms"] + root_ms)
+    return row
 
 
 def phase_kernels_msm(inputs: dict, device) -> tuple[list[dict], dict]:
@@ -1353,11 +1400,18 @@ def phase_kernels_msm(inputs: dict, device) -> tuple[list[dict], dict]:
 
         torch.cuda.synchronize()
         t = time.time()
+        _native.reset_launches()
         dinv = A.batch_inverse(den, group, curve)
         torch.cuda.synchronize()
         extra[name("batch_inverse_ms")] = (time.time() - t) * 1e3
+        per_call = {k: v for k, v in _native.LAUNCHES.items() if v}
+        if per_call != {name("affine_batch_inverse"): 3}:
+            raise AssertionError(
+                f"{name('affine_batch_inverse')}: a batch inverse launched {per_call}")
         extra[name("batch_inverse_device_ms")] = cuda_ms(lambda: A.batch_inverse(den, group, curve))
-        extra[name("k7_tree")] = k7_tree_ms(den, dinv, group, curve)
+        extra[name("k7_tree")] = k7_tree_ms(den, dinv, group, curve)  # equal to dinv
+        rows.append(batch_inverse_row(den, dinv, group, curve, affine_src, name, m2 * fq_mul,
+                                      el_bytes, extra[name("k7_tree")]["root_inverse_ms"]))
         out = A.affine_phase3(blk_rows, sgn, dinv, cls, group, curve)
         ms = cuda_ms(lambda: A.affine_phase3(blk_rows, sgn, dinv, cls, group, curve))
         ref, pms = plain_time(
@@ -2789,11 +2843,15 @@ def main() -> int:
     # each row's launches from the run of its path: the prove's, the MSM
     # bench's, bench_field's for K9 and K10 (K11's, K12-K17's and K1's
     # parts' were set in their phases)
-    for group, counts in ((rows, launches), (bls_rows, launches_bls),
-                          (msm_rows, bench_launches), (bls_msm_rows, bench_launches_bls)):
+    for group, counts, setup in ((rows, launches, setup_launches),
+                                 (bls_rows, launches_bls, setup_launches_bls),
+                                 (msm_rows, bench_launches, setup_launches),
+                                 (bls_msm_rows, bench_launches_bls, setup_launches_bls)):
         for row in group:
             if row["launches"] is None:
                 path = field_launches if row["name"].startswith("mont_mul16") else counts
+                # K7 since K19: the setup's affine codec is its path
+                path = setup if row["name"].startswith("affine_tree_mul") else path
                 row["launches"] = path.get(row["name"], 0)
     # K18's launches in configuration 5's batch (BN254), beside the bench's,
     # and a rank's in batch_dp
@@ -2807,7 +2865,7 @@ def main() -> int:
         if row["name"] in path_launches({}):
             row["dist_launches"] = dist_launches[2].get(row["name"], 0)
             row["dist_one_rank_launches"] = dist_launches[1].get(row["name"], 0)
-    # K1's, K4's and K7's launches in the setups, beside those of their paths
+    # K1's, K4's, K7's and K19's launches in the setups, beside those of their paths
     for group, counts in ((rows + msm_rows, setup_launches),
                           (bls_rows + bls_msm_rows, setup_launches_bls)):
         for row in group:
@@ -2828,7 +2886,12 @@ def main() -> int:
             raise AssertionError(f"{row['name']} was not launched on the legacy path")
         if row["launches"] == 0 and not off_path:
             raise AssertionError(f"{row['name']} was not launched on the main path")
-        row["ptxas"] = build["ptxas"].get(kernel_template(row["name"]))
+        if row["name"].startswith("affine_batch_inverse"):  # its three kernels
+            row["ptxas"] = {ph: build["ptxas"].get(
+                kernel_template(row["name"]).replace("_up_", f"_{ph}_"))
+                            for ph in ("up", "top", "down")}
+        else:
+            row["ptxas"] = build["ptxas"].get(kernel_template(row["name"]))
         if row["name"].startswith(("affine_phase1", "affine_phase3")):
             ops = build["sass"].get(kernel_template(row["name"])) if isinstance(
                 build["sass"], dict) else None

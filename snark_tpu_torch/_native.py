@@ -59,6 +59,9 @@ _SIGNATURES = {
     "snark_affine_phase1": [_I, _I, _P, _I, _P, _P, _P, _I, _P],
     # curve, group, mode, a, b, out, n, stream
     "snark_affine_tree_mul": [_I, _I, _I, _P, _P, _P, _I, _P],
+    # curve, group, phase (0 up, 1 top, 2 down), den, out, workspace,
+    # workspace elements, n, stream
+    "snark_affine_batch_inverse": [_I, _I, _I, _P, _P, _P, _I, _I, _P],
     # curve, group, rows, row_bytes, sgn, dinv, cls, out, pairs, stream
     "snark_affine_phase3": [_I, _I, _P, _I, _P, _P, _P, _P, _I, _P],
     # curve, group, p, x2, y2, mask, out, lanes, stream
@@ -95,7 +98,8 @@ CURVE_CODES = {"bn254": 0, "bls12_381": 1}
 NOT_PORTED = -1
 _KERNELS = frozenset({
     "bucket_madd_rows", "masked_add", "point_double", "ntt_pass", "field_ew",
-    "affine_phase1", "affine_tree_mul", "affine_phase3", "masked_mixed_add",
+    "affine_phase1", "affine_tree_mul", "affine_phase3", "affine_batch_inverse",
+    "masked_mixed_add",
     "mont_mul16", "mont_mul16_limb_major", "horner_combine", "chain_latency",
 })
 # kernels over one field of the curve (a scalar field; the base field for

@@ -10,7 +10,15 @@
 // K7 affine_tree_mul replaces snark_tpu/ops/msm_affine.py tree_kernel (the
 //   product-tree muls of batch_inverse_planes) in mode 0, and the width-1
 //   root inverse (snark_tpu/ops/plane_affine.py _fermat_inv, and the Fq2
-//   norm trick of batch_inverse_planes) in mode 1.
+//   norm trick of batch_inverse_planes) in mode 1. Since K19 it runs no
+//   batch inversion: mode 0 serves the products of the affine codec
+//   (ops/affine_codec.py: X and Y times 1/Z, the rows' radix) and the
+//   former tree (ops/msm_affine.py tree_inverse), which the smoke keeps as
+//   K19's yardstick; mode 1 inverts elements one a thread.
+// K19 affine_batch_inverse replaces the whole of batch_inverse_planes
+//   (snark_tpu/ops/msm_affine.py:508, its tree_kernel levels, value-level
+//   tail and root _fermat_inv): Montgomery's trick over chunks in three
+//   launches whatever the count (affine_kernels.cuh).
 // K8 affine_phase3 replaces snark_tpu/ops/msm_affine.py phase3_kernel
 //   (_phase3_body): the affine add itself, written back as a row.
 //
@@ -66,10 +74,32 @@
 // bound and K6 at 79-89% of its bytes bound (PERF.md, section 6).
 //
 // K7 is one thread per element with all arithmetic in registers (the
-// 12-limb product a called function, as in K1). The root inverse runs one
-// lane through the square-and-multiply chain of q - 2, one square per bit
-// and one mul per set bit: 254 and 110 for BN254, 381 and 229 for
-// BLS12-381. A serial chain, bound by latency.
+// 12-limb product a called function, as in K1).
+//
+// K19. The former batch inversion was K7's product tree: 3 ceil(log2 n)
+// products and a root inverse, 73 launches and 27 torch.cat copies at
+// level 0 of the bench MSM (11,796,480 BN254 G1 pairs), of which the card
+// was busy 34-49%: the narrow levels' launches and the copies took the
+// time, not the products. Its bound is the products': 3 (n - 1) of 4N^2 +
+// N multiply-adds (3 base products an Fq2 one) over 16.7e12/s, above the
+// bytes of reading den once and writing dinv once at 3.35 TB/s (BN254 G1
+// 0.559 against 0.225 ms), plus the root inverse's latency, which no design
+// runs in parallel. K19 takes three launches whatever n, copies nothing,
+// and does about 3 n products, most of them in chunks of C consecutive
+// products a thread with every operand in registers and every access a
+// warp's run of consecutive 16-byte words. Its bytes (den twice, out's
+// prefixes written, read and overwritten: about 5 n elements) are 2.5x
+// the bound's, at about 5 multiply-adds a byte for BN254 G1, so it is near
+// balance there and bound by products in BLS12-381. The root inverse takes
+// fixed 4-bit windows (fermat_inv): 325 products on one thread in BN254
+// against 364, 485 in BLS12-381 against 610. C and T per instance
+// (InverseSizes): T = 128, C = 32 over Fq and 16 over Fq2, G = n / (T C)
+// block products for a top block of 256 threads; BLS12-381 G2 takes 122,
+// 146 and 152 registers in up, top and down, with no spill. The largest n
+// run is 11,796,480 (level 0 of the 2^20 bench MSM in G1): 0.92 ms for
+// BN254 and 2.00 ms for BLS12-381 on an NVIDIA H100 80GB HBM3 at 700 W,
+// against bounds of 0.72 and 1.74 ms with the root's latency; up and down
+// move their bytes at about 2.6 TB/s (PERF.md, section 6).
 
 #include "affine_kernels.cuh"
 
@@ -106,5 +136,17 @@ extern "C" int snark_affine_tree_mul(int curve, int group, int mode, const void*
   cudaStream_t s = (cudaStream_t)stream;
   if (curve == kBn254) return launch_affine_tree_mul<FqParams>(group, mode, a, b, out, n, s);
   if (curve == kBls12_381) return bls_affine_tree_mul(group, mode, a, b, out, n, s);
+  return kNotPorted;
+}
+
+extern "C" int snark_affine_batch_inverse(int curve, int group, int phase, const void* den,
+                                          void* out, void* ws, int ws_elems, int n,
+                                          void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (curve == kBn254)
+    return launch_affine_batch_inverse<FqParams>(group, phase, den, out, ws, ws_elems, n, s);
+  if (curve == kBls12_381)
+    return bls_affine_batch_inverse(group, phase, den, out, ws, ws_elems, n, s);
   return kNotPorted;
 }

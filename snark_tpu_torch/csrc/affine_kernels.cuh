@@ -290,14 +290,33 @@ __global__ void __launch_bounds__(kAffineTile)
   tile_store(g_out, s_rows, cnt * RB);
 }
 
-// a^(q - 2) = a^-1 (0 for a = 0), square and multiply from the top bit of
-// the base field's Fermat exponent (field.cuh).
+// a^(q - 2) = a^-1 (0 for a = 0) over fixed 4-bit windows of the base
+// field's Fermat exponent (field.cuh), most significant first, as the
+// reference's _fermat_inv: a table of a^1 .. a^15 (14 products, in local
+// memory, as a window indexes it), then four squares a window and one
+// product by the table a nonzero window. BN254 (64 windows, the top one
+// 3): 14 + 252 + 59 = 325 products on the critical path against the binary
+// ladder's 254 + 110 = 364; BLS12-381 (96 windows, the top one 1): 14 + 380
+// + 91 = 485 against 381 + 229 = 610.
+template <class P>
+__device__ __forceinline__ uint32_t pm2_window(int k) {
+  return (P::pm2(k >> 3) >> (4 * (k & 7))) & 15u;
+}
+
 template <class P>
 __device__ __forceinline__ Fp<P> fermat_inv(const Fp<P>& a) {
-  Fp<P> acc = Curve<Fp<P>>::one();
-  for (int i = P::kPm2Bits - 1; i >= 0; --i) {
-    acc = acc * acc;
-    if ((P::pm2(i >> 5) >> (i & 31)) & 1u) acc = acc * a;
+  constexpr int kWindows = (P::kPm2Bits + 3) / 4;
+  Fp<P> tbl[15];
+  tbl[0] = a;
+#pragma unroll 1
+  for (int d = 1; d < 15; ++d) tbl[d] = tbl[d - 1] * a;
+  Fp<P> acc = tbl[pm2_window<P>(kWindows - 1) - 1];  // the top window is nonzero
+#pragma unroll 1
+  for (int k = kWindows - 2; k >= 0; --k) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc = acc * acc;
+    const uint32_t d = pm2_window<P>(k);
+    if (d) acc = acc * tbl[d - 1];
   }
   return acc;
 }
@@ -324,6 +343,200 @@ __global__ void affine_tree_mul_kernel(const uint32_t* __restrict__ a,
   const E x = Curve<E>::load(a + (size_t)i * W);
   const E r = mode == 0 ? x * Curve<E>::load(b + (size_t)i * W) : field_inv(x);
   Curve<E>::store(out + (size_t)i * W, r);
+}
+
+// ---- K19 affine_batch_inverse: Montgomery's trick in three launches
+//
+// The inverses of n nonzero elements (den, (n, W) words) into out, in
+// three launches whatever n:
+//   up    block b of T threads takes elements [b T C, (b + 1) T C); thread
+//         t of it the chunk b T C + t + i T (i < C), so that a warp's loads
+//         and stores cover consecutive elements with no staging. The thread
+//         runs the chunk's prefix products into out (scratch: prefix p_i in
+//         element i's place, all but the last), and leaves the chunk's
+//         product in a heap of 2 T nodes in shared memory (leaf T + t); the
+//         block multiplies the heap up to node 1 and writes nodes 1 .. 2T - 1
+//         to its row of the workspace (G rows of 2 T elements, G = ceil(n /
+//         (T C))).
+//   top   one block of kTop threads runs the same trick over the G block
+//         products (node 1 of each row), a chunk of ceil(G / kTop) each, so
+//         any G takes one launch; its prefixes go to node 0 of the rows,
+//         thread 0 inverts its heap's root (field_inv), and each block
+//         product's inverse replaces it in node 1.
+//   down  block b loads its row (node 1 now the block's inverse) into its
+//         heap, takes each node's inverse down to the leaves, and each
+//         thread walks its chunk back: dinv_i = inv p_(i-1), inv = inv x_i.
+// Products: the chunks 3 (n - G T) (C - 1 up, 2 (C - 1) down, a chunk), the
+// heaps 3 (T - 1) a block and the top's 3 (G - 1), about 3 n, as a product
+// tree's; plus the root inverse (fermat_inv) on one thread. Bytes: den read
+// twice (up, down), out written twice and its prefixes read once, the
+// workspace (2 n / C elements) written and read once. See affine.cu for the
+// bound.
+
+// Sizes of an instance: T threads a block of up and down and C elements a
+// chunk; kTop threads in the top block. T and kTop powers of two.
+template <class E>
+struct InverseSizes;
+template <>
+struct InverseSizes<Fp<FqParams>> {
+  static constexpr int T = 128, C = 32, kTop = 256;
+};
+template <>
+struct InverseSizes<Fp2<FqParams>> {
+  static constexpr int T = 128, C = 16, kTop = 256;
+};
+template <>
+struct InverseSizes<Fp<BlsFqParams>> {
+  static constexpr int T = 128, C = 32, kTop = 256;
+};
+template <>
+struct InverseSizes<Fp2<BlsFqParams>> {
+  static constexpr int T = 128, C = 16, kTop = 256;
+};
+
+// An element in 16-byte accesses (W words, a multiple of 4; s 16-byte
+// aligned), stored canonical.
+template <class E>
+__device__ __forceinline__ E load_elem(const uint32_t* s) {
+  uint32_t w[Curve<E>::W];
+#pragma unroll
+  for (int k = 0; k < Curve<E>::W; k += 4)
+    *reinterpret_cast<uint4*>(w + k) = *reinterpret_cast<const uint4*>(s + k);
+  return Curve<E>::load(w);
+}
+
+template <class E>
+__device__ __forceinline__ void store_elem(uint32_t* d, const E& a) {
+  uint32_t w[Curve<E>::W];
+  Curve<E>::store(w, a);
+#pragma unroll
+  for (int k = 0; k < Curve<E>::W; k += 4)
+    *reinterpret_cast<uint4*>(d + k) = *reinterpret_cast<const uint4*>(w + k);
+}
+
+// The elements of a chunk: e0 + i step for i < cnt, element e at x + e s
+// (and so for p and y). Up: the prefix products p_i = x_0 ... x_i, p_i
+// written to p at element i's place for i < cnt - 1; returns the chunk's
+// product (one for an empty chunk).
+template <class E>
+__device__ __forceinline__ E chunk_up(const uint32_t* x, uint32_t* p, size_t s, size_t e0,
+                                      int step, int cnt) {
+  if (cnt == 0) return Curve<E>::one();
+  E acc = load_elem<E>(x + e0 * s);
+  for (int i = 1; i < cnt; ++i) {
+    const size_t e = e0 + (size_t)i * step;
+    store_elem(p + (e - step) * s, acc);
+    acc = acc * load_elem<E>(x + e * s);
+  }
+  return acc;
+}
+
+// Down, from inv = the inverse of the chunk's product: for i = cnt - 1 down
+// to 1, y_i = inv p_(i-1) and inv = inv x_i; y_0 = inv. x_i is read before
+// y_i is written, so y may be x; p_(i-1) is read before y_(i-1), so y may
+// be p.
+template <class E>
+__device__ __forceinline__ void chunk_down(const uint32_t* x, const uint32_t* p, uint32_t* y,
+                                           size_t s, size_t e0, int step, int cnt, E inv) {
+  for (int i = cnt - 1; i >= 1; --i) {
+    const size_t e = e0 + (size_t)i * step;
+    const E xi = load_elem<E>(x + e * s);
+    store_elem(y + e * s, inv * load_elem<E>(p + (e - step) * s));
+    inv = inv * xi;
+  }
+  if (cnt > 0) store_elem(y + e0 * s, inv);
+}
+
+// A heap of 2 T nodes in shared memory (node i at h + i W; children 2i and
+// 2i + 1; leaves T .. 2T - 1). Up: each node the product of its children,
+// a level at a time. All T threads call it.
+template <class E>
+__device__ __forceinline__ void heap_up(uint32_t* h, int T) {
+  constexpr int W = Curve<E>::W;
+  const int t = threadIdx.x;
+  for (int L = T / 2; L >= 1; L >>= 1) {
+    __syncthreads();
+    if (t < L) {
+      const int node = L + t;
+      store_elem(h + node * W,
+                 load_elem<E>(h + 2 * node * W) * load_elem<E>(h + (2 * node + 1) * W));
+    }
+  }
+  __syncthreads();
+}
+
+// Down, from node 1 = the inverse of the root: each child's inverse is its
+// parent's inverse times its sibling, one thread a child; the leaves end as
+// the inverses of the leaves' values. All T threads call it.
+template <class E>
+__device__ __forceinline__ void heap_down(uint32_t* h, int T) {
+  constexpr int W = Curve<E>::W;
+  const int t = threadIdx.x;
+  for (int L = 1; L < T; L <<= 1) {
+    const bool act = t < 2 * L;
+    const int child = 2 * L + t;
+    E v;
+    if (act) v = load_elem<E>(h + (child >> 1) * W) * load_elem<E>(h + (child ^ 1) * W);
+    __syncthreads();
+    if (act) store_elem(h + child * W, v);
+    __syncthreads();
+  }
+}
+
+// Elements of thread t's chunk: e0 = base + t, e0 + step, ... below n, at
+// most cmax.
+__device__ __forceinline__ int chunk_count(size_t n, size_t e0, int step, int cmax) {
+  if (e0 >= n) return 0;
+  const size_t c = (n - e0 + step - 1) / step;
+  return c < (size_t)cmax ? (int)c : cmax;
+}
+
+template <class E>
+__global__ void __launch_bounds__(InverseSizes<E>::T)
+    affine_inverse_up_kernel(const uint32_t* den, uint32_t* out, uint32_t* ws, int n) {
+  constexpr int W = Curve<E>::W, T = InverseSizes<E>::T, C = InverseSizes<E>::C;
+  extern __shared__ __align__(16) uint32_t inv_heap[];
+  const int t = threadIdx.x;
+  const size_t e0 = (size_t)blockIdx.x * T * C + t;
+  const int cnt = chunk_count(n, e0, T, C);
+  store_elem(inv_heap + (T + t) * W, chunk_up<E>(den, out, W, e0, T, cnt));
+  heap_up<E>(inv_heap, T);
+  // nodes 1 .. 2T - 1 to the block's row; node 0 is the top's scratch
+  uint4* row = reinterpret_cast<uint4*>(ws + (size_t)blockIdx.x * 2 * T * W);
+  const uint4* h = reinterpret_cast<const uint4*>(inv_heap);
+  for (int k = W / 4 + t; k < 2 * T * W / 4; k += T) row[k] = h[k];
+}
+
+template <class E>
+__global__ void __launch_bounds__(InverseSizes<E>::kTop)
+    affine_inverse_top_kernel(uint32_t* ws, int g) {
+  constexpr int W = Curve<E>::W, T = InverseSizes<E>::T, TT = InverseSizes<E>::kTop;
+  extern __shared__ __align__(16) uint32_t inv_heap[];
+  const int t = threadIdx.x;
+  const size_t s = 2 * T * W;  // a row: x (node 1) at ws + W, the prefixes (node 0) at ws
+  const int cnt = chunk_count(g, t, TT, (g + TT - 1) / TT);
+  store_elem(inv_heap + (TT + t) * W, chunk_up<E>(ws + W, ws, s, t, TT, cnt));
+  heap_up<E>(inv_heap, TT);
+  if (t == 0) store_elem(inv_heap + W, field_inv(load_elem<E>(inv_heap + W)));
+  __syncthreads();
+  heap_down<E>(inv_heap, TT);
+  chunk_down<E>(ws + W, ws, ws + W, s, t, TT, cnt, load_elem<E>(inv_heap + (TT + t) * W));
+}
+
+template <class E>
+__global__ void __launch_bounds__(InverseSizes<E>::T)
+    affine_inverse_down_kernel(const uint32_t* den, uint32_t* out, const uint32_t* ws, int n) {
+  constexpr int W = Curve<E>::W, T = InverseSizes<E>::T, C = InverseSizes<E>::C;
+  extern __shared__ __align__(16) uint32_t inv_heap[];
+  const int t = threadIdx.x;
+  const uint4* row = reinterpret_cast<const uint4*>(ws + (size_t)blockIdx.x * 2 * T * W);
+  uint4* h = reinterpret_cast<uint4*>(inv_heap);
+  for (int k = W / 4 + t; k < 2 * T * W / 4; k += T) h[k] = row[k];
+  __syncthreads();
+  heap_down<E>(inv_heap, T);
+  const size_t e0 = (size_t)blockIdx.x * T * C + t;
+  chunk_down<E>(den, out, out, W, e0, T, chunk_count(n, e0, T, C),
+                load_elem<E>(inv_heap + (T + t) * W));
 }
 
 constexpr int kAffineBlock = 128;
@@ -387,6 +600,42 @@ int launch_affine_tree_mul(int group, int mode, const void* a, const void* b, vo
   return (int)cudaGetLastError();
 }
 
+// K19, one launch: phase 0 up, 1 top, 2 down (the three in this order on
+// one stream). ws holds ws_elems elements, at least 2 T G; n >= 1.
+template <class E>
+int launch_inverse_phase(int phase, const void* den, void* out, void* ws, int ws_elems, int n,
+                         cudaStream_t s) {
+  using Z = InverseSizes<E>;
+  constexpr int W = Curve<E>::W;
+  const long long g = (n + (long long)Z::T * Z::C - 1) / ((long long)Z::T * Z::C);
+  if (n <= 0 || 2 * Z::T * g > ws_elems) return (int)cudaErrorInvalidValue;
+  const int heap = 2 * Z::T * W * 4, top_heap = 2 * Z::kTop * W * 4;
+  if (phase == 0) {
+    affine_inverse_up_kernel<E><<<(int)g, Z::T, heap, s>>>((const uint32_t*)den, (uint32_t*)out,
+                                                          (uint32_t*)ws, n);
+  } else if (phase == 1) {
+    if (top_heap >= 48 * 1024) {  // BLS12-381 G2: 48 KB, at the default limit
+      const cudaError_t e = cudaFuncSetAttribute(
+          affine_inverse_top_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, top_heap);
+      if (e != cudaSuccess) return (int)e;
+    }
+    affine_inverse_top_kernel<E><<<1, Z::kTop, top_heap, s>>>((uint32_t*)ws, (int)g);
+  } else if (phase == 2) {
+    affine_inverse_down_kernel<E><<<(int)g, Z::T, heap, s>>>(
+        (const uint32_t*)den, (uint32_t*)out, (const uint32_t*)ws, n);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <class P>
+int launch_affine_batch_inverse(int group, int phase, const void* den, void* out, void* ws,
+                                int ws_elems, int n, cudaStream_t s) {
+  if (group == 1) return launch_inverse_phase<Fp<P>>(phase, den, out, ws, ws_elems, n, s);
+  return launch_inverse_phase<Fp2<P>>(phase, den, out, ws, ws_elems, n, s);
+}
+
 // The BLS12-381 launchers, defined in affine_bls.cu.
 int bls_affine_phase1(int group, const void* rows, int row_bytes, const void* sgn, void* den,
                       void* cls, int pairs, cudaStream_t s);
@@ -394,5 +643,7 @@ int bls_affine_phase3(int group, const void* rows, int row_bytes, const void* sg
                       const void* dinv, const void* cls, void* out, int pairs, cudaStream_t s);
 int bls_affine_tree_mul(int group, int mode, const void* a, const void* b, void* out, int n,
                         cudaStream_t s);
+int bls_affine_batch_inverse(int group, int phase, const void* den, void* out, void* ws,
+                             int ws_elems, int n, cudaStream_t s);
 
 }  // namespace snark

@@ -1,4 +1,4 @@
-"""Projective points to the proving key's two affine forms, on K7.
+"""Projective points to the proving key's two affine forms, on K19 and K7.
 
 Counterpart of the JAX package's `ops/plane_affine.py`
 (`PlaneAffineCodec`). The setup's fixed-base walk (`ops/fixed_base.py`)
@@ -11,11 +11,11 @@ leaves (N, 3, K, L) projective limbs (`ops/curve.py`); the key wants
     BN254 Fq, 2^384 for BLS12-381 Fq), each u32 word split into two 16-bit
     limbs, Z = 1 and the identity (0, 1, 0).
 
-Z⁻¹ comes from the batch-inversion product tree of `ops/msm_affine.py`
-(K7 products, one K7 inverse at the root; in G2 the tree runs over Fq2).
-A zero Z (the identity, half of a MulChain `a_tbl`) would zero every
-inverse above it in the tree, so those lanes invert one in its place and
-are written as identity rows: X = 0, Y = one, flag 0. X·Z⁻¹, Y·Z⁻¹ and
+Z⁻¹ comes from the batch inversion of `ops/msm_affine.py` (K19,
+Montgomery's trick in three launches; in G2 over Fq2). A zero Z (the
+identity, half of a MulChain `a_tbl`) would zero every inverse of its
+block, so those lanes invert one in its place and are written as identity
+rows: X = 0, Y = one, flag 0. X·Z⁻¹, Y·Z⁻¹ and
 the product by 2^(8·D) are K7 products too (mode 0), and K7 stores every
 value reduced, so the bytes are canonical. The rest is torch ops.
 """

@@ -1,7 +1,7 @@
 """Batch-affine bucket accumulation for the plane MSM: kernels K6
-(`affine_phase1`), K7 (`affine_tree_mul`, `affine_inverse`) and K8
-(`affine_phase3`), their plain PyTorch versions, the batch inversion and the
-orchestration (`AffineAccum`).
+(`affine_phase1`), K7 (`affine_tree_mul`, `affine_inverse`), K8
+(`affine_phase3`) and K19 (`affine_batch_inverse`), their plain PyTorch
+versions, the batch inversion and the orchestration (`AffineAccum`).
 
 Counterpart of the JAX package's `ops/msm_affine.py` (and of the Fermat
 inverse of `ops/plane_affine.py`). Instead of adding each bucket's sorted
@@ -10,9 +10,21 @@ elements are first scattered into per-bucket blocks of B0 = 2^v slots
 (padding slots hold the identity), and v levels of pairwise affine adds
 halve the blocks: pair (2j, 2j+1) of a level becomes row j of the next.
 An affine add needs 1/(x2 − x1) (or 1/(2y1) for a double); one batch
-inversion per level (a product tree, one inverse at its root) serves every
-pair of the level. The per-block partial sums are rows in the key's format,
-contiguous per bucket, and the K1 scan with its spill finishes them.
+inversion per level serves every pair of the level. The per-block partial
+sums are rows in the key's format, contiguous per bucket, and the K1 scan
+with its spill finishes them.
+
+The batch inversion (`batch_inverse`) is K19: Montgomery's trick over
+chunks of consecutive products, in three launches whatever the count (up:
+each thread's chunk and each block's product; top: one block inverts the
+block products, one Fermat inverse on 4-bit windows at its root; down: each
+block's and each chunk's inverses), its plain version
+`affine_batch_inverse_plain` the same algorithm with the same index map.
+The inputs must be nonzero: one zero zeroes every inverse of its block
+(K6 gives den = 1 to the pairs that compute nothing, and the affine codec
+inverts one in place of Z = 0). K7 stays for products: mode 0 runs the
+affine codec's and the former product tree (`tree_inverse`, which the Fr
+inverse of `groth16/qap_device.py` runs on K4), mode 1 an inverse a thread.
 
 Every degenerate pair is exact: identity operands (the row flag), P + P
 (double), P + (−P) (identity), told apart by exact comparison of canonical
@@ -37,7 +49,7 @@ import math
 import torch
 
 from .. import _native
-from ..fields.limbs import Field, fields_of, from_words, mont_mul_words, to_words
+from ..fields.limbs import Field, from_words, mont_mul_words, to_words
 from ..fields.params import BN254, CurveParams
 from .curve import GROUPS, _launch, _PlainCurve, limbs_of, row_bytes, row_digits
 
@@ -151,32 +163,124 @@ def affine_tree_mul_plain(a, b, group: str, curve: CurveParams = BN254) -> torch
     return from_words(r)
 
 
+def fermat_windows(p: int) -> list[int]:
+    """The 4-bit windows of p − 2, most significant first (the top one is
+    nonzero)."""
+    e = p - 2
+    return [(e >> (4 * k)) & 15 for k in range((e.bit_length() + 3) // 4)][::-1]
+
+
 def _fermat_inv_words(z: torch.Tensor, fq: Field) -> torch.Tensor:
-    """z^(q−2) on (N, L) Fq words (0 for 0), square and multiply from the
-    top bit, as K7 does it."""
-    e = fq.p - 2
-    acc = to_words(fq.const(1, z.device)).expand_as(z)
-    for i in range(e.bit_length() - 1, -1, -1):
-        acc = mont_mul_words(acc, acc, fq)
-        if (e >> i) & 1:
-            acc = mont_mul_words(acc, z, fq)
+    """z^(q−2) on (N, L) Fq words (0 for 0) over fixed 4-bit windows, as K7
+    and K19 do it: a table of z^1 .. z^15, then four squares a window and
+    one product by the table a nonzero window."""
+    tbl = [z]
+    for _ in range(14):
+        tbl.append(mont_mul_words(tbl[-1], z, fq))
+    wins = fermat_windows(fq.p)
+    acc = tbl[wins[0] - 1]
+    for d in wins[1:]:
+        for _ in range(4):
+            acc = mont_mul_words(acc, acc, fq)
+        if d:
+            acc = mont_mul_words(acc, tbl[d - 1], fq)
     return acc
 
 
-def affine_inverse_plain(a, group: str, curve: CurveParams = BN254) -> torch.Tensor:
-    """Plain version of K7, mode 1: a^-1 per element (0 for 0). Fq2 goes
-    through the norm: (c0 + c1·u)^-1 = (c0 − c1·u) / (c0² + c1²), as
-    u² = −1 on both curves."""
-    w = to_words(a)
-    pc = _PlainCurve("g1", a.device, curve)
+def _inverse_words(w: torch.Tensor, pc: _PlainCurve) -> torch.Tensor:
+    """(N, K, L) words -> their inverses (0 for 0). Fq2 goes through the
+    norm: (c0 + c1·u)^-1 = (c0 − c1·u) / (c0² + c1²), as u² = −1 on both
+    curves."""
     fq = pc.fq
-    if GROUPS[group] == 1:
-        return from_words(_fermat_inv_words(w[:, 0], fq)[:, None])
+    if w.shape[1] == 1:
+        return _fermat_inv_words(w[:, 0], fq)[:, None]
     c0, c1 = w[:, 0], w[:, 1]
     sq = mont_mul_words(torch.stack([c0, c1]), torch.stack([c0, c1]), fq)
     ninv = _fermat_inv_words(pc.add(sq[0], sq[1]), fq)
     r = mont_mul_words(torch.stack([c0, c1]), torch.stack([ninv, ninv]), fq)
-    return from_words(torch.stack([r[0], pc.sub(torch.zeros_like(r[1]), r[1])], dim=1))
+    return torch.stack([r[0], pc.sub(torch.zeros_like(r[1]), r[1])], dim=1)
+
+
+def affine_inverse_plain(a, group: str, curve: CurveParams = BN254) -> torch.Tensor:
+    """Plain version of K7, mode 1: a^-1 per element (0 for 0)."""
+    return from_words(_inverse_words(to_words(a), _PlainCurve(group, a.device, curve)))
+
+
+# K19's sizes an instance (csrc/affine_kernels.cuh `InverseSizes`): threads
+# a block and elements a chunk of the up and down launches, threads of the
+# top block.
+INVERSE_SIZES = {
+    ("bn254", "g1"): (128, 32, 256), ("bn254", "g2"): (128, 16, 256),
+    ("bls12_381", "g1"): (128, 32, 256), ("bls12_381", "g2"): (128, 16, 256),
+}
+
+
+def _inverse_up(x, blocks: int, T: int, C: int, mul, one):
+    """Up over the chunks of (n, K, L) words x: element b·T·C + t + i·T is
+    the i-th of block b's thread t (a (blocks, C, T) view of the padded
+    elements). -> (prefixes p_i (blocks, C, T, K, L), valid (blocks, C, T),
+    each block's heap levels from the chunk products (blocks, T, K, L) up
+    to the block's product (blocks, 1, K, L))."""
+    n = x.shape[0]
+    valid = (torch.arange(blocks * C * T, device=x.device) < n).view(blocks, C, T)
+    xs = torch.cat([x, one.expand(blocks * C * T - n, *x.shape[1:])]).view(
+        blocks, C, T, *x.shape[1:])
+    pre = torch.empty_like(xs)
+    pre[:, 0] = acc = torch.where(valid[:, 0, :, None, None], xs[:, 0], one)
+    for i in range(1, C):
+        pre[:, i] = acc = torch.where(valid[:, i, :, None, None], mul(acc, xs[:, i]), acc)
+    heap = [acc]
+    while heap[-1].shape[1] > 1:
+        heap.append(mul(heap[-1][:, 0::2], heap[-1][:, 1::2]))
+    return pre, valid, xs, heap
+
+
+def _inverse_down(pre, valid, xs, heap, inv, mul):
+    """Down from the blocks' inverses inv (blocks, 1, K, L): each heap
+    node's children get its inverse times their sibling, then each chunk
+    from its end: y_i = inv·p_(i−1), inv = inv·x_i; y_0 = inv. -> the
+    inverses (blocks·C·T, K, L), padding included."""
+    for level in reversed(heap[:-1]):
+        inv = torch.stack([mul(inv, level[:, 1::2]), mul(inv, level[:, 0::2])], dim=2)
+        inv = inv.flatten(1, 2)
+    y = torch.empty_like(xs)
+    for i in range(xs.shape[1] - 1, 0, -1):
+        on = valid[:, i, :, None, None]
+        y[:, i] = torch.where(on, mul(inv, pre[:, i - 1]), 0)
+        inv = torch.where(on, mul(inv, xs[:, i]), inv)
+    y[:, 0] = inv
+    return y.flatten(0, 2)
+
+
+def affine_batch_inverse_plain(den, group: str, curve: CurveParams = BN254, chunk=None,
+                               threads=None, top_threads=None) -> torch.Tensor:
+    """Plain version of K19 with its index map, heaps, top and windowed
+    root: the inverses of (M, K, L) nonzero elements. `threads` (T),
+    `chunk` (C) and `top_threads` default to the instance's sizes
+    (`INVERSE_SIZES`); T and top_threads powers of two."""
+    T0, C0, TT0 = INVERSE_SIZES[(curve.name, group)]
+    T, C, TT = threads or T0, chunk or C0, top_threads or TT0
+    M = den.shape[0]
+    if M == 0:
+        return den.clone()
+    pc = _PlainCurve(group, den.device, curve)
+    one = _field_one(GROUPS[group], pc.fq, den.device)[0]
+
+    def mul(a, b):
+        a, b = torch.broadcast_tensors(a, b)
+        (r,) = pc.mul_many([(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]))])
+        return r.reshape(a.shape)
+
+    G = -(-M // (T * C))
+    up = _inverse_up(to_words(den), G, T, C, mul, one)
+    products = up[3][-1][:, 0]  # the G blocks' products, their heaps' roots
+    top = _inverse_up(products, 1, TT, -(-G // TT), mul, one)
+    # the one inversion, at the top's root: hundreds of dependent products of
+    # one element, which run faster on the host than as tiny device ops
+    root_inv = _inverse_words(top[3][-1][:, 0].cpu(), _PlainCurve(group, "cpu", curve))
+    root_inv = root_inv.to(den.device)
+    blk_inv = _inverse_down(*top, root_inv[:, None], mul)[:G]
+    return from_words(_inverse_down(*up, blk_inv[:, None], mul)[:M])
 
 
 # ---------------------------------------------------------------------------
@@ -309,17 +413,34 @@ def tree_inverse(x: torch.Tensor, mul, inv_root, one: torch.Tensor) -> torch.Ten
     return inv
 
 
-def batch_inverse(den: torch.Tensor, group: str = "g1", curve: CurveParams = BN254) -> torch.Tensor:
-    """Inverses of (M, K, L) nonzero elements of Fq (G1) or Fq2 (G2):
-    `tree_inverse` on K7, its products in mode 0 and the root in mode 1.
-    3·ceil(log2 M) + 1 launches of K7."""
-    one = from_words(_field_one(GROUPS[group], fields_of(curve)[1], den.device))
-    return tree_inverse(
-        den,
-        lambda a, b: affine_tree_mul(a, b, group, curve=curve),
-        lambda r: affine_inverse(r, group, curve),
-        one,
-    )
+def affine_batch_inverse(den: torch.Tensor, group: str = "g1",
+                         curve: CurveParams = BN254) -> torch.Tensor:
+    """K19: the inverses of (M, K, L) nonzero elements of Fq (G1) or Fq2
+    (G2), in three launches (up, top, down) whatever M; the output and the
+    workspace (2·T elements a block of T·C) from `torch.empty`."""
+    _native.require_ported("affine_batch_inverse", curve.name)
+    M = _check_elems(den, -1, group, "den", curve)
+    if den.device.type == "cpu":
+        return affine_batch_inverse_plain(den, group, curve)
+    _native.require_cuda(den)
+    _native.require_aligned(den)
+    out = torch.empty_like(den)
+    if M == 0:
+        return out
+    T, C, _ = INVERSE_SIZES[(curve.name, group)]
+    ws = torch.empty((2 * T * -(-M // (T * C)), *den.shape[1:]), dtype=den.dtype,
+                     device=den.device)
+    for phase in range(3):
+        _launch(
+            "affine_batch_inverse", "affine_batch_inverse", curve, group, phase, den.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), ws.shape[0], M,
+        )
+    return out
+
+
+# The batch inversion the affine levels and the affine codec call: K19 on a
+# CUDA tensor, its plain version on the CPU.
+batch_inverse = affine_batch_inverse
 
 
 def pick_block_size(mean_len: int) -> int:

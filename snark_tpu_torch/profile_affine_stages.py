@@ -17,20 +17,25 @@ lines, each the mean of K calls after a warm-up between CUDA events:
                    (`AffineAccum.blocks`: block offsets, indices, gather)
     phase1         K6 on the M pairs
     tree_mul       one K7 product at width M / 2
-    batch_inverse  the whole `tree_inverse` of the M dens (3·⌈log2 M⌉ K7
-                   products and one root inverse), timed three ways: between
-                   two CUDA events (`device_ms`), by the host clock ending in
-                   a synchronise (`host_ms`), and under `torch.profiler`:
-                   its kernels' device time (`kernel_ms`), each K7 launch's
-                   in launch order (`k7_us`), the copies' (`other_us`), the
-                   launches, and `busy_share` = kernel_ms / device_ms (the
-                   rest of the interval the card waits on the host)
+    batch_inverse  the M dens' inverses, K19 (`batch_inverse`: three
+                   launches), timed three ways: between two CUDA events
+                   (`device_ms`), by the host clock ending in a synchronise
+                   (`host_ms`), and under `torch.profiler`: its kernels'
+                   device time (`kernel_ms`), each K19 launch's in launch
+                   order (`kernel_us`: up, top, down), the rest's
+                   (`other_us`), the launches, and `busy_share` =
+                   kernel_ms / device_ms (the rest of the interval the card
+                   waits on the host)
+    tree_inverse   the former batch inverse, timed the same three ways:
+                   `tree_inverse` on K7 (3·⌈log2 M⌉ products and one root
+                   inverse; `kernel_us` its K7 launches, `other_us` its
+                   `torch.cat` copies)
     phase3         K8 on the M pairs
     accumulate     the whole batch-affine accumulation of the MSM
                    (`AffineAccum.accumulate`: blocks, v levels, the scan)
 
 `equal`: K6's and K8's outputs on the first EQUAL_PAIRS pairs equal their
-plain versions on the same rows. One JSON line, with the card's name and
+plain versions on the same rows, and the two batch inverses are equal. One JSON line, with the card's name and
 power limit.
 """
 
@@ -44,28 +49,43 @@ import torch
 from . import _native
 from . import bench as B
 from . import toolkit as T
+from .fields.limbs import fields_of
 from .ops import msm_affine as MA
 from .ops.msm_plane import PlaneMsm
 
 EQUAL_PAIRS = 1024
 
 
-def trace_inverse(inv) -> dict:
-    """One inv() under `torch.profiler` (CUDA activity): the device time of
-    all its kernels and copies (`kernel_ms`), of K7's launches in launch
-    order (`k7_us`, the tree's levels: up-sweep, root, down-sweep) and of
-    the rest (`other_us`, the `torch.cat` copies)."""
+def trace(fn, kernel: str) -> dict:
+    """One fn() under `torch.profiler` (CUDA activity): the device time of
+    all its kernels and copies (`kernel_ms`), of the launches whose name
+    holds `kernel` in launch order (`kernel_us`) and of the rest
+    (`other_us`)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        inv()
+        fn()
         torch.cuda.synchronize()
     events = sorted((e for e in prof.events()
                      if str(getattr(e, "device_type", "")).endswith("CUDA")),
                     key=lambda e: e.time_range.start)
-    k7 = [e.time_range.elapsed_us() for e in events if "affine_tree_mul" in e.name]
+    own = [e.time_range.elapsed_us() for e in events if kernel in e.name]
     total = sum(e.time_range.elapsed_us() for e in events)
-    return {"kernel_ms": total / 1e3, "k7_us": k7, "other_us": total - sum(k7)}
+    return {"kernel_ms": total / 1e3, "kernel_us": own, "other_us": total - sum(own)}
+
+
+def inverse_record(fn, kernel: str, dev, iters: int):
+    """fn() timed by CUDA events, by the host clock and (on a card) under
+    the profiler, with its launches -> (record, fn's output)."""
+    t, out = T.timed(fn, dev, iters)
+    rec = {"device_ms": t, "host_ms": T.host_ms(fn, dev, iters)}
+    if dev.type == "cuda":
+        before = _native.LAUNCHES.copy()
+        rec.update(trace(fn, kernel))
+        rec["launches"] = {k: v - before.get(k, 0) for k, v in _native.LAUNCHES.items()
+                           if v != before.get(k, 0)}
+        rec["busy_share"] = rec["kernel_ms"] / rec["device_ms"]
+    return rec, out
 
 
 def run(log_n: int, c: int, iters: int, device) -> dict:
@@ -90,16 +110,12 @@ def run(log_n: int, c: int, iters: int, device) -> dict:
     h = M // 2
     a, b = den[:h].contiguous(), den[h : 2 * h].contiguous()
     out["tree_mul_ms"] = T.time_ms(lambda: MA.affine_tree_mul(a, b), dev, iters)
-    inv = lambda: MA.batch_inverse(den)  # noqa: E731
-    t_inv, dinv = T.timed(inv, dev, iters)
-    inv_rec = {"device_ms": t_inv, "host_ms": T.host_ms(inv, dev, iters)}
-    if dev.type == "cuda":
-        before = _native.LAUNCHES.copy()
-        inv_rec.update(trace_inverse(inv))
-        inv_rec["launches"] = {k: v - before.get(k, 0) for k, v in _native.LAUNCHES.items()
-                               if v != before.get(k, 0)}
-        inv_rec["busy_share"] = inv_rec["kernel_ms"] / inv_rec["device_ms"]
-    out["batch_inverse"] = inv_rec
+    out["batch_inverse"], dinv = inverse_record(lambda: MA.batch_inverse(den), "affine_inverse_",
+                                                dev, iters)
+    one = MA.from_words(MA._field_one(1, fields_of(inp.curve)[1], dev))
+    out["tree_inverse"], tree = inverse_record(
+        lambda: MA.tree_inverse(den, MA.affine_tree_mul, MA.affine_inverse, one),
+        "affine_tree_mul", dev, iters)
     out["phase3_ms"], rows3 = T.timed(lambda: MA.affine_phase3(rows, sgn, dinv, cls), dev, iters)
     out["accumulate_ms"] = T.time_ms(
         lambda: acc.accumulate(inp.table, perm, start, length, inp.n, mean), dev, iters)
@@ -109,7 +125,8 @@ def run(log_n: int, c: int, iters: int, device) -> dict:
     out["equal"] = bool(
         torch.equal(d_k, den[:k]) and torch.equal(c_k, cls[:k])
         and torch.equal(MA.affine_phase3_plain(r_k, s_k, dinv[:k], cls[:k], "g1"),
-                        rows3[:k]))
+                        rows3[:k])
+        and torch.equal(dinv, tree))
     return {**out, "iters": iters, **T.card(dev)}
 
 

@@ -110,7 +110,8 @@ for curve, n_full, sfx in ((BN254, S.FULL_N, ""), (BLS12_381, S.FULL_N_BLS, "_bl
         if "prove_setup" + sfx in phases:
             t0 = time.time()
             args = (pk, vk, curve, z, device) if by_hand else (pk, vk, curve, device)
-            line("prove_setup" + sfx, t0, **S.phase_prove_setup(*args, pooled, save=False))
+            info = S.phase_prove_setup(*args, pooled, save_dir=None)
+            line("prove_setup" + sfx, t0, **(info[0] if isinstance(info, tuple) else info))
         del pk, vk
         torch.cuda.empty_cache()
 if "bench_madd_parts" in phases:

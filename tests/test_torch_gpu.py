@@ -261,6 +261,39 @@ def test_affine_kernels_match_plain(cuda, group, curve):
 
 @pytest.mark.parametrize("curve", [BN254, BLS12_381], ids=["bn254", "bls12_381"])
 @pytest.mark.parametrize("group", ["g1", "g2"])
+def test_affine_batch_inverse_matches_plain(cuda, group, curve):
+    """K19 against its plain version (on the card) at the edges of its
+    indexing with the instance's T and C: M = 1, 2, 3, C − 1, C, C + 1,
+    T·C − 1, T·C + 1, 3·T·C + 5 and G = kTop + 3 block products (more than
+    the top block's threads); three launches a call and no K7 launch; and
+    at 100,003 elements equal to the former K7 tree, with den·dinv = 1."""
+    T, Cc, top = A.INVERSE_SIZES[(curve.name, group)]
+    fq = fields_of(curve)[1]
+    K = C.GROUPS[group]
+    g = torch.Generator().manual_seed(19)
+    one = torch.zeros((1, K, fq.limbs), dtype=torch.int32, device=cuda)
+    one[0, 0] = fq.const(1, cuda)
+    for m in (1, 2, 3, Cc - 1, Cc, Cc + 1, T * Cc - 1, T * Cc + 1, 3 * T * Cc + 5,
+              (top + 3) * T * Cc - 11, 100_003):
+        vals = [int(v) % (fq.p - 1) + 1 for v in
+                torch.randint(0, 1 << 62, (m * K,), generator=g, dtype=torch.int64).tolist()]
+        den = fq.tensor(vals, cuda).view(m, K, fq.limbs)
+        _native.reset_launches()
+        dinv = A.batch_inverse(den, group, curve)
+        launched = {k: v for k, v in _native.LAUNCHES.items() if v}
+        assert launched == {_native.counter_name("affine_batch_inverse", curve.name, group): 3}
+        if m == 100_003:
+            assert torch.equal(dinv, A.tree_inverse(
+                den, lambda a, b: A.affine_tree_mul(a, b, group, curve=curve),
+                lambda r: A.affine_inverse(r, group, curve), one))
+            assert torch.equal(A.affine_tree_mul(den, dinv, group, curve=curve),
+                               one.expand_as(den))
+        else:
+            assert torch.equal(dinv, A.affine_batch_inverse_plain(den, group, curve)), m
+
+
+@pytest.mark.parametrize("curve", [BN254, BLS12_381], ids=["bn254", "bls12_381"])
+@pytest.mark.parametrize("group", ["g1", "g2"])
 def test_affine_tiles_match_plain(cuda, group, curve):
     """K6 and K8 at their tiles' edges (T = 128 pairs a block) against the
     plain versions: M = 1, T − 1, T, T + 1 and an odd M above 10^5; the
