@@ -249,12 +249,17 @@ Phases, each printing one JSON line with its wall seconds as it ends:
    host, B's values mod R to the host recurrence. Its launch counts go into
    the kernel line for K16, one row a line, each held against its plain
    version exactly; K16 A's SASS must hold HMMA (its band products on the
-   tensor cores), where the toolkit has cuobjdump.
+   tensor cores), where the toolkit has cuobjdump. Each row carries its
+   launch geometry (`ops/mul_parts.py` `launch_geometry` on this card's
+   SMs; a grid that leaves an SM idle fails), its resident warps an SM
+   (the runtime's occupancy), its instance's registers and spill stores
+   (ptxas) and its static FRND count.
 15. bench_bisect_mul: `snark_tpu_torch.bench_bisect_mul.run` at the
    script's shapes (T = 512, 8 deep), its six lines correct: equal to
    their plain versions bit for bit and to host references. Its launch
    counts go into the kernel line for K17, one row a kind, each held
-   against its plain version exactly.
+   against its plain version exactly, with the same geometry, warps,
+   registers and FRND count as phase 14's rows.
 16. bench_madd_parts: K1's parts (nosub, halfmul, nodecode; BN254 G1) each
    held against its plain version on the card over the scan's first
    MIXED_SCAN_STEPS steps at the bench's 81,920 lanes, exactly, and against
@@ -2386,30 +2391,53 @@ def phase_bench_vpu_peak(smi: str, device) -> tuple[dict, list[dict]]:
     return info, rows
 
 
-def bench_rows(res: dict, launches: dict, fns: dict, source: str, replaces: str) -> list[dict]:
+def bench_rows(res: dict, launches: dict, fns: dict, source: str, replaces: str,
+               build: dict | None = None) -> list[dict]:
     """One kernel row for each line of a decomposition bench: the kernel
     (fns[line] = (kernel call, plain call)) against its plain version,
-    exactly, at the line's shape; launches from the bench run."""
+    exactly, at the line's shape; launches from the bench run. Each row
+    also carries its launch geometry at the line's lanes on this card
+    (which must fill every SM), the warps an SM keeps resident (the CUDA
+    runtime's occupancy) and, from the build line, its instance's
+    registers, spill stores and static FRND count."""
+    import torch
+
+    from snark_tpu_torch.ops import mul_parts as MP
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ptxas = (build or {}).get("ptxas", {})
+    sass = (build or {}).get("sass")
     rows = []
     for rec in res["lines"]:
         fn, plain = fns[rec["line"]]
         out = fn()
         ref, pms = plain_time(plain)
+        kind = rec.get("kind", rec["line"])
+        geo = MP.launch_geometry(kind, rec["lanes"], rec.get("T", MP.BISECT_T), sms)
+        if geo["grid"] < min(sms, geo["tiles"]):
+            raise AssertionError(f"{rec['kernel']}: a grid of {geo['grid']} blocks on {sms} SMs")
+        template = kernel_template(rec["kernel"])
+        ops = sass.get(template, {}) if isinstance(sass, dict) else {}
         rows.append({
             "name": rec["kernel"], "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches.get(rec["kernel"], 0), "max_abs_err": max_abs_err(out, ref),
             "ms": cuda_ms(fn), "plain_ms": pms, "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None, "reps": rec["reps"],
-            "lanes": rec["lanes"], "tolerance": "exact",
+            "lanes": rec["lanes"], "tolerance": "exact", "geometry": geo,
+            "warps_per_sm": MP.resident_warps(kind),
+            "registers": ptxas.get(template, {}).get("registers"),
+            "spill_stores": ptxas.get(template, {}).get("spill_stores"),
+            "frnd": sum(n for op, n in ops.items() if op.startswith("FRND")) if ops else None,
         })
         del out, ref
     return rows
 
 
-def phase_bench_reduce_parts(smi: str, device, sass) -> tuple[dict, list[dict]]:
+def phase_bench_reduce_parts(smi: str, device, sass, ptxas=None) -> tuple[dict, list[dict]]:
     """bench_reduce_parts' five lines at the script's shapes, every line
     correct, K16 A equal to C; K16 A's SASS holds HMMA; then K16 against its
-    plain version at each line's shape. -> (phase info, kernel rows)."""
+    plain version at each line's shape (`bench_rows`; `ptxas` is the build
+    line's). -> (phase info, kernel rows)."""
     import torch
 
     from snark_tpu_torch import _native
@@ -2438,15 +2466,16 @@ def phase_bench_reduce_parts(smi: str, device, sass) -> tuple[dict, list[dict]]:
     if not a_equals_c:
         raise AssertionError("K16 A differs from K16 C")
     rows = bench_rows(res, launches, fns, "snark_tpu_torch/csrc/mul_parts.cu",
-                      "scripts/bench_reduce_parts.py:100")
+                      "scripts/bench_reduce_parts.py:100", {"sass": sass, "ptxas": ptxas or {}})
     info = {"nvidia_smi": smi, "lanes": res["lanes"], "lines": res["lines"], "launches": launches,
             "a_equals_c": a_equals_c, "hmma_in_sass": hmma}
     return info, rows
 
 
-def phase_bench_bisect_mul(smi: str, device) -> tuple[dict, list[dict]]:
+def phase_bench_bisect_mul(smi: str, device, sass=None, ptxas=None) -> tuple[dict, list[dict]]:
     """bench_bisect_mul's six lines at the script's shapes, every line
-    correct; then K17 against its plain version at each line's shape.
+    correct; then K17 against its plain version at each line's shape
+    (`bench_rows`; `sass` and `ptxas` are the build line's).
     -> (phase info, kernel rows)."""
     from snark_tpu_torch import _native
     from snark_tpu_torch import bench_bisect_mul as BB
@@ -2463,7 +2492,7 @@ def phase_bench_bisect_mul(smi: str, device) -> tuple[dict, list[dict]]:
     fns = {k: (lambda k=k: MP.bisect_chain(am, bm, k), lambda k=k: MP.bisect_chain_plain(am, bm, k))
            for k in MP.BISECT_KINDS}
     rows = bench_rows(res, launches, fns, "snark_tpu_torch/csrc/mul_parts.cu",
-                      "scripts/bench_bisect_mul.py:98")
+                      "scripts/bench_bisect_mul.py:98", {"sass": sass, "ptxas": ptxas or {}})
     return {"nvidia_smi": smi, "lanes": res["lanes"], "lines": res["lines"],
             "launches": launches}, rows
 
@@ -2826,11 +2855,11 @@ def main() -> int:
     phase_line("bench_vpu_peak", t0, **info_v)
 
     t0 = time.time()
-    info_r, parts_rows = phase_bench_reduce_parts(smi, device, build["sass"])
+    info_r, parts_rows = phase_bench_reduce_parts(smi, device, build["sass"], build["ptxas"])
     phase_line("bench_reduce_parts", t0, **info_r)
 
     t0 = time.time()
-    info_m, bisect_rows = phase_bench_bisect_mul(smi, device)
+    info_m, bisect_rows = phase_bench_bisect_mul(smi, device, build["sass"], build["ptxas"])
     phase_line("bench_bisect_mul", t0, **info_m)
 
     t0 = time.time()

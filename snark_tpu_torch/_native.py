@@ -78,10 +78,12 @@ _SIGNATURES = {
     "snark_conv_chain": [_P, _P, _P, _I, _I, _I, _P],
     "snark_mont_mul_chain": [_P, _P, _P, _I, _I, _I, _P],
     # the decomposition kernels (csrc/mul_parts.cu): a, b, out, band
-    # fragments, lanes, kind, lanes a block, reps, stream
-    "snark_reduce_parts_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # a, b, out, lanes, kind, lanes a block, reps, stream
-    "snark_bisect_chain": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # fragments, lanes, kind, grid, block, shared bytes, reps, stream
+    "snark_reduce_parts_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # a, b, out, lanes, kind, grid, block, shared bytes, reps, stream
+    "snark_bisect_chain": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # K16 (0) or K17 (1), kind, shared bytes -> resident blocks an SM
+    "snark_parts_occupancy": [_I, _I, _I],
 }
 
 # The curve code every entry point takes first (csrc/field.cuh), and the

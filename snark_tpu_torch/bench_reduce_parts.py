@@ -13,11 +13,12 @@ pairs tiled, its depth (8) and its five lines, all through K16
     A T=512    mont_mul, constant multiplies as band products (tensor cores)
     B T=512    the product and sweeps only, not a product
     C T=512    mont_mul, constant multiplies as scalar FMAs
-    A T=2048   as A, 2048 lanes a block
-    C T=2048   as C, 2048 lanes a block
+    A T=2048   as A, the TPU's 2048 lanes a grid step
+    C T=2048   as C, the TPU's 2048 lanes a grid step
 
-T is the script's TPU block width; on the card it is the lanes a block of
-256 threads covers (`csrc/mul_parts.cu`). The script's variant A passes
+T is the script's TPU block width; on the card it only names the line and
+divides the lanes, and both T launch the same geometry (`ops/mul_parts.py`
+`launch_geometry`, `csrc/mul_parts.cu`). The script's variant A passes
 `plus_p` twice and raises (`scripts/bench_reduce_parts.py:84-86`); the port
 runs what it means, `mont_mul(A, B, t_ref, carry, plus_p=2p, m_np=M_NP,
 m_p=M_P)`.

@@ -12,6 +12,22 @@
 // in, and may use FMAs. Where a caller leaves that range (K17's conv0 and
 // conv1), it takes mul_acc's rounded form, which rounds as the plain
 // version does.
+//
+// The sweeps' floor is a template flag (kRd), false by default:
+//   false: floorf, which compiles to FRND, an instruction that issues at a
+//          fraction of the FP32 rate on sm_90 (K13-K15, K17's conv1);
+//   true:  c = __fmaf_rd(z, 2^-8, 1.5 2^23) - 1.5 2^23, an FFMA rounding
+//          toward -inf and an FADD, both at the full FP32 rate. For
+//          -2^30 <= z <= 2^30 the exact sum z 2^-8 + 1.5 2^23 lies in
+//          [2^23, 2^24], where float32's spacing is 1, so rounding it down
+//          is its floor and the FADD is exact: c = floor(z / 256). Beyond
+//          that range it is not (z = 2^30 + 256 gives 2^22, not 2^22 + 1;
+//          z = -2^30 - 128 gives -2^22 - 1/2). K16's kinds and K17's conv3,
+//          conv9, sweep9 and convreg take it: every value they sweep is a
+//          product sum of 34 digits below 2^9 and 2^8 plus a few such
+//          terms, below 2^23 (tests/test_torch_mul_parts_grid.py pins the
+//          largest). conv1 keeps floorf: its values reach 1.5e11.
+//   The count per row stays 4 FP32 instructions either way.
 
 #pragma once
 
@@ -51,26 +67,35 @@ struct Bn254Fq34 {
 __device__ __forceinline__ float pow256(int e) { return __int_as_float((127 + 8 * e) << 23); }
 
 // One base-256 carry sweep between rows, in place (the reference's
-// _sweep): c_i = floor(z_i / 256), r_i = z_i - 256 c_i, z_i = r_i + c_{i-1};
+// _sweep): c_i = floor(z_i / 256) (floor256), r_i = z_i - 256 c_i, z_i = r_i + c_{i-1};
 // the carry out of the top row is dropped. 256 c_i is exact, so the FMA
 // rounds z_i - 256 c_i once, as the plain version's subtraction does.
-template <int R>
+template <bool kRd>
+__device__ __forceinline__ float floor256(float z) {
+  if constexpr (kRd) {
+    return __fadd_rn(__fmaf_rd(z, 1.0f / 256.0f, 12582912.0f), -12582912.0f);
+  } else {
+    return floorf(z * (1.0f / 256.0f));
+  }
+}
+
+template <int R, bool kRd = false>
 __device__ __forceinline__ void sweep(float (&z)[R]) {
   float carry = 0.0f;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
-    const float c = floorf(z[i] * (1.0f / 256.0f));
+    const float c = floor256<kRd>(z[i]);
     const float r = __fmaf_rn(-256.0f, c, z[i]);
     z[i] = i == 0 ? r : __fadd_rn(r, carry);
     carry = c;
   }
 }
 
-template <int R>
+template <int R, bool kRd = false>
 __device__ __forceinline__ void sweep3(float (&z)[R]) {
-  sweep<R>(z);
-  sweep<R>(z);
-  sweep<R>(z);
+  sweep<R, kRd>(z);
+  sweep<R, kRd>(z);
+  sweep<R, kRd>(z);
 }
 
 // t = A B, the lazy 2R-row digit product (the reference's mul_acc): row i
@@ -99,16 +124,16 @@ __device__ __forceinline__ void mul_acc(const float (&A)[R], const float (&B)[R]
 //   t += m p on the rows that reach the carry or the high half
 //                                                     (reduce_add_mp)
 //   A = sweep3(s_hi + carry + 2p)                     (reduce_out)
-template <int R>
+template <int R, bool kRd = false>
 __device__ __forceinline__ void reduce_low(const float (&t)[2 * R], float (&u)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) u[i] = t[i];
-  sweep3<R>(u);
+  sweep3<R, kRd>(u);
 }
 
 // In place, from the top row down, as u[k] reads only rows <= k; zero
 // digits of N' skipped at compile time.
-template <class F>
+template <class F, bool kRd = false>
 __device__ __forceinline__ void reduce_np(float (&u)[F::kRows]) {
   constexpr int R = F::kRows;
 #pragma unroll
@@ -120,7 +145,7 @@ __device__ __forceinline__ void reduce_np(float (&u)[F::kRows]) {
     }
     u[k] = acc;
   }
-  sweep3<R>(u);
+  sweep3<R, kRd>(u);
 }
 
 // Rows below R - kCarryRows are never read after this, so they are skipped.
@@ -139,7 +164,7 @@ __device__ __forceinline__ void reduce_add_mp(float (&t)[2 * F::kRows], const fl
 
 // carry = value(s_lo) / R from the top kCarryRows rows, rounded; then
 // A = sweep3(s_hi + carry + 2p)
-template <class F>
+template <class F, bool kRd = false>
 __device__ __forceinline__ void reduce_out(const float (&t)[2 * F::kRows], float (&A)[F::kRows]) {
   constexpr int R = F::kRows;
   float c = 0.0f;
@@ -152,18 +177,18 @@ __device__ __forceinline__ void reduce_out(const float (&t)[2 * F::kRows], float
     if (F::p2(j) != 0.0f) v = __fadd_rn(v, F::p2(j));
     A[j] = v;
   }
-  sweep3<R>(A);
+  sweep3<R, kRd>(A);
 }
 
 // A = reduce(t) + 2p with the scalar-constant backend (the reference's
 // reduce with m_np, m_p None); t is clobbered
-template <class F>
+template <class F, bool kRd = false>
 __device__ __forceinline__ void reduce_scalar(float (&t)[2 * F::kRows], float (&A)[F::kRows]) {
   float u[F::kRows];
-  reduce_low<F::kRows>(t, u);
-  reduce_np<F>(u);
+  reduce_low<F::kRows, kRd>(t, u);
+  reduce_np<F, kRd>(u);
   reduce_add_mp<F>(t, u);
-  reduce_out<F>(t, A);
+  reduce_out<F, kRd>(t, A);
 }
 
 }  // namespace snark

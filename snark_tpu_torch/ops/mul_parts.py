@@ -26,15 +26,24 @@ The plain versions follow the scripts' kernels step for step, on the
 port's `PlaneFieldV3` (`ops/plane_field_v3.py`) where the scripts call the
 JAX package's (`snark_tpu/ops/pallas_field_v3.py`).
 
-T, the TPU block width, becomes on the card the lanes a block of 256
-threads covers, T / 256 lanes to a thread, with K16 A's band fragments
-loaded once a block (`csrc/mul_parts.cu`); lanes must be a multiple of T.
-It changes nothing in the values. On a CPU tensor each wrapper runs its
-plain version; on a CUDA tensor it launches its kernel, and a failed build
-or launch raises. Every kind equals its plain version digit for digit and
-bit for bit: the integer kinds stay below 2^24, and conv0 and conv1, which
-do not, round each product and sum in the plain version's order. Each
-kernel counts its launches by kind (K16 also by T).
+T, the scripts' TPU block width, sets nothing on the card: it names the
+line (K16's launch counters are by kind and T) and lanes must be a
+multiple of it, as the scripts' grid needs. The launch geometry is
+`launch_geometry`'s, the same at either T: one lane a thread, a tile of
+128 lanes a block (K16 A and C: 256); K16 A, C and K17 sweep9 run one
+block a tile, every other kind a grid of the blocks the card keeps
+resident, each walking its tiles and fetching the next tile's digit rows
+into shared memory (16-byte cp.async) while it computes the current one
+(each form where it measured faster). The kernels' launch bounds
+keep at least 16 warps an SM resident (K16 C: 8, at up to 255 registers
+a thread; `csrc/mul_parts.cu` says why). It changes nothing in the values. On a
+CPU tensor each wrapper runs its plain version; on a CUDA tensor it
+launches its kernel, and a failed build or launch raises. Every kind
+equals its plain version digit for digit and bit for bit: the integer
+kinds stay below 2^24, and conv0 and conv1, which do not, round each
+product and sum in the plain version's order. The kernels' sweeps floor
+with a round-down FFMA and an FADD, exact for |z| <= 2^30, where every
+value the integer kinds sweep lies; conv1 keeps floorf (`csrc/plane_v3.cuh`).
 """
 
 from __future__ import annotations
@@ -59,6 +68,22 @@ CONV_SCALE = 1e-7  # conv0's feedback scale
 K_PAD = 48
 NP_ROWS_PAD = 48
 P_ROWS_PAD = 80
+# launch geometry (csrc/mul_parts.cu): a block and the blocks an SM its
+# launch bounds keep resident, for K16 A, K16 C and every other kind; the
+# SMs of an H100 SXM
+BAND_THREADS, BAND_BLOCKS_PER_SM = 256, 2
+SCALAR_THREADS, SCALAR_BLOCKS_PER_SM = 256, 1
+LANE_THREADS, LANE_BLOCKS_PER_SM = 128, 4
+H100_SMS = 132
+# the kinds whose blocks walk their tiles with a tile buffer of shared
+# memory, 2·ROWS floats a thread; the others take one tile a block
+WALKING_KINDS = ("B", "conv0", "conv1", "conv3", "conv9", "convreg")
+# K16 A's shared memory: the band fragments (24 tiles of 32 lanes x 16
+# bytes), a warp's staging area (32 lanes x 20 words of bf16 pairs, 16 C
+# rows x 40 floats), then a column of ROWS floats a thread for t's high
+# half; C and sweep9 take none
+BAND_FRAG_BYTES = 24 * 32 * 16
+WARP_STAGE_BYTES = 32 * 20 * 4 + 16 * 40 * 4
 
 
 def _check_kind(kind: str, kinds: tuple) -> int:
@@ -68,8 +93,55 @@ def _check_kind(kind: str, kinds: tuple) -> int:
 
 
 def _check_tiling(lanes: int, T: int) -> None:
-    if lanes % T:
-        raise ValueError(f"lanes ({lanes}) must be a multiple of T ({T})")
+    if lanes <= 0 or lanes % T:
+        raise ValueError(f"lanes ({lanes}) must be a positive multiple of T ({T})")
+
+
+def launch_geometry(kind: str, lanes: int, T: int, sms: int = H100_SMS) -> dict:
+    """The launch of K16 (kind A, B, C) or K17 (conv0 ... convreg) on
+    `lanes` lanes on a card of `sms` SMs: {"grid", "block", "smem",
+    "tiles"}. Thread i of tile j takes lane j·block + i. K16 A, C and K17
+    sweep9: one block a tile. The kinds of WALKING_KINDS: as many blocks as
+    the card keeps resident (`sms` times the blocks an SM), at most one a
+    tile, block k walking tiles k, k + grid, ... with a tile buffer of
+    shared memory. So every lane once, and at the benches' 131,072 lanes
+    every SM busy. T only checks the lanes (a positive multiple of it)."""
+    _check_kind(kind, PARTS_KINDS + BISECT_KINDS)
+    _check_tiling(lanes, T)
+    block, per_sm = {"A": (BAND_THREADS, BAND_BLOCKS_PER_SM),
+                     "C": (SCALAR_THREADS, SCALAR_BLOCKS_PER_SM)}.get(
+                         kind, (LANE_THREADS, LANE_BLOCKS_PER_SM))
+    tiles = lanes // block
+    if kind in WALKING_KINDS:
+        return {"grid": min(tiles, sms * per_sm), "block": block, "smem": 2 * ROWS * block * 4,
+                "tiles": tiles}
+    smem = BAND_FRAG_BYTES + block // 32 * WARP_STAGE_BYTES + ROWS * block * 4 if kind == "A" else 0
+    return {"grid": tiles, "block": block, "smem": smem, "tiles": tiles}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check_aligned(*tensors: torch.Tensor) -> None:
+    """The kernels copy rows in 16-byte chunks (cp.async)."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("kernel inputs must start 16-byte aligned")
+
+
+def resident_warps(kind: str) -> int:
+    """Warps of `kind`'s kernel that the card keeps resident on one SM at
+    its launch geometry (the CUDA runtime's occupancy calculator over the
+    built kernel's registers and shared memory); needs a card."""
+    geo = launch_geometry(kind, LANE_THREADS * BAND_THREADS, PARTS_T[0] if kind in PARTS_KINDS
+                          else BISECT_T)
+    kernel = 0 if kind in PARTS_KINDS else 1
+    code = PARTS_KINDS.index(kind) if kernel == 0 else BISECT_KINDS.index(kind)
+    blocks = _native._library().snark_parts_occupancy(kernel, code, geo["smem"])
+    if blocks < 0:
+        raise RuntimeError(f"occupancy of {kind}: CUDA error {-blocks}")
+    return blocks * geo["block"] // 32
 
 
 # ---------------------------------------------------------------------------
@@ -169,7 +241,8 @@ def _fragments_on(device: str) -> torch.Tensor:
 def reduce_parts_chain(
     a: torch.Tensor, b: torch.Tensor, kind: str, T: int, reps: int = REPS
 ) -> torch.Tensor:
-    """K16: `reps` rounds of variant `kind` from A = a, at block width T."""
+    """K16: `reps` rounds of variant `kind` from A = a, on the line of
+    block width T."""
     lanes = _check_pair(a, b, reps)
     code = _check_kind(kind, PARTS_KINDS)
     if T not in PARTS_T:
@@ -178,24 +251,30 @@ def reduce_parts_chain(
     if a.device.type == "cpu":
         return reduce_parts_chain_plain(a, b, kind, T, reps)
     _native.require_cuda(a, b)
+    _check_aligned(a, b)
+    geo = launch_geometry(kind, lanes, T, _sm_count(a.device.index))
     out = torch.empty_like(a)
     frags = _fragments_on(str(a.device))
     _native.launch("reduce_parts_chain", f"reduce_parts_chain_{kind}_{T}", a.data_ptr(),
-                   b.data_ptr(), out.data_ptr(), frags.data_ptr(), lanes, code, T, int(reps))
+                   b.data_ptr(), out.data_ptr(), frags.data_ptr(), lanes, code, geo["grid"],
+                   geo["block"], geo["smem"], int(reps))
     return out
 
 
 def bisect_chain(a: torch.Tensor, b: torch.Tensor, kind: str, reps: int = REPS) -> torch.Tensor:
-    """K17: `reps` rounds of variant `kind` from A = a, at block width 512."""
+    """K17: `reps` rounds of variant `kind` from A = a (the scripts' T =
+    512 divides the lanes)."""
     lanes = _check_pair(a, b, reps)
     code = _check_kind(kind, BISECT_KINDS)
     _check_tiling(lanes, BISECT_T)
     if a.device.type == "cpu":
         return bisect_chain_plain(a, b, kind, reps)
     _native.require_cuda(a, b)
+    _check_aligned(a, b)
+    geo = launch_geometry(kind, lanes, BISECT_T, _sm_count(a.device.index))
     out = torch.empty_like(a)
     _native.launch("bisect_chain", f"bisect_chain_{kind}", a.data_ptr(), b.data_ptr(),
-                   out.data_ptr(), lanes, code, BISECT_T, int(reps))
+                   out.data_ptr(), lanes, code, geo["grid"], geo["block"], geo["smem"], int(reps))
     return out
 
 
@@ -203,7 +282,9 @@ def bisect_chain(a: torch.Tensor, b: torch.Tensor, kind: str, reps: int = REPS) 
 # work counts (for bounds): per lane and rep
 # ---------------------------------------------------------------------------
 
-SWEEP_OPS = 4 * ROWS - 1  # a multiply, a floor and an FMA a row, R8 - 1 carry adds
+# a row: a floor (a multiply and FRND, or a round-down FFMA and an FADD) and
+# an FMA; R8 - 1 carry adds
+SWEEP_OPS = 4 * ROWS - 1
 LOW_PRODUCT = ROWS * (ROWS + 1) // 2  # the terms of t[:R8], all that K17 and K16 B read
 
 

@@ -10,19 +10,23 @@ over the call shows as a difference between the two runs of one tree.
 PHASES is a comma-separated subset of kernels, prove_full,
 prove_full_affine, setup_full, prove_setup, msm_bench, kernels_bls,
 prove_full_bls, prove_full_affine_bls, setup_full_bls, prove_setup_bls,
-msm_bench_bls, bench_madd_parts (default: all of them; prove_full_affine is
-the prove with `affine_msm=True`;
-a tree whose chip_smoke.py has no setup phases skips those). Each run
-builds its tree's kernels first (both trees' builds run together before
-the first turn), calls that tree's own phase functions and prints their
-JSON lines; this process tags every line with its tree and turn and
-prints at the end one JSON line `{"pair": ...}`: for each kernel row, ms
-in the four turns (K3's also a transform, the h pipeline and one stage);
-the batch-affine tree's inverse times of the kernels lines; for each
-msm_bench record, adds/s and its `stage_ms.combine`; each prove's seconds
-and its `h` and `msm *` stages; the setups' stages; the K1 scans of
-bench_madd_parts. Every number is measured on the card by the phase that
-prints it. Exits non-zero if a run fails. Needs one card.
+msm_bench_bls, bench_madd_parts, bench_reduce_parts, bench_bisect_mul
+(default: all of them; prove_full_affine is the prove with
+`affine_msm=True`; a tree whose chip_smoke.py has no setup phases skips
+those). Each run builds its tree's kernels first (both trees' builds run
+together before the first turn), calls that tree's own phase functions and
+prints their JSON lines; this process tags every line with its tree and
+turn and prints at the end one JSON line `{"pair": ...}`: for each kernel
+row, ms in the four turns (K3's also a transform, the h pipeline and one
+stage); the batch-affine tree's inverse times of the kernels lines; for
+each msm_bench record, adds/s and its `stage_ms.combine`; each prove's
+seconds and its `h` and `msm *` stages; the setups' stages; the K1 scans
+of bench_madd_parts; the K16 and K17 bench lines' ms (`bench_line_ms`);
+and, from each turn's build line, the registers, spill stores, static SASS
+instructions and FRND count of every K12-K17 instance (`build`), with
+`build_same`: whether an instance's registers and SASS opcode counts are
+the same in both trees. Every number is measured on the card by the phase
+that prints it. Exits non-zero if a run fails. Needs one card.
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ import time
 
 PHASES = ("kernels", "prove_full", "prove_full_affine", "setup_full", "prove_setup", "msm_bench",
           "kernels_bls", "prove_full_bls", "prove_full_affine_bls", "setup_full_bls",
-          "prove_setup_bls", "msm_bench_bls", "bench_madd_parts")
+          "prove_setup_bls", "msm_bench_bls", "bench_madd_parts", "bench_reduce_parts",
+          "bench_bisect_mul")
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # Run in each tree with that tree's chip_smoke.py: the phase functions and
@@ -66,7 +71,13 @@ def line(name, t0, **info):
 
 t0 = time.time()
 build = S.phase_build()
-line("build", t0, nvcc_seconds=build["nvcc_seconds"], nvidia_smi=smi)
+roofline = S.VPU_KERNELS + S.PARTS_KERNELS  # K12-K17: their instances' ptxas and SASS
+line("build", t0, nvcc_seconds=build["nvcc_seconds"], nvidia_smi=smi,
+     ptxas={k: v for k, v in build["ptxas"].items()
+            if k.split("<")[0].removesuffix("_kernel") in roofline},
+     sass={k: v for k, v in build["sass"].items()
+           if k.split("<")[0].removesuffix("_kernel") in roofline}
+     if isinstance(build["sass"], dict) else build["sass"])
 by_hand = hasattr(MulChainCircuit, "assignment")
 for curve, n_full, sfx in ((BN254, S.FULL_N, ""), (BLS12_381, S.FULL_N_BLS, "_bls")):
     circuit = MulChainCircuit(seed=S.FULL_SEED, n=n_full)
@@ -118,6 +129,14 @@ if "bench_madd_parts" in phases:
     t0 = time.time()
     info, rows = S.phase_bench_madd_parts(smi, device, build["sass"])
     line("bench_madd_parts", t0, kernels=rows, **info)
+if "bench_reduce_parts" in phases:
+    t0 = time.time()
+    info, rows = S.phase_bench_reduce_parts(smi, device, build["sass"])
+    line("bench_reduce_parts", t0, kernels=rows, **info)
+if "bench_bisect_mul" in phases:
+    t0 = time.time()
+    info, rows = S.phase_bench_bisect_mul(smi, device)
+    line("bench_bisect_mul", t0, kernels=rows, **info)
 """
 
 
@@ -149,7 +168,8 @@ def summary(runs: list[list[dict]]) -> dict:
     """The numbers to compare, each a list over the four turns."""
     out: dict = {"kernel_ms": {}, "affine_tree_ms": {}, "msm_adds_per_s": {},
                  "msm_combine_ms": {}, "prove_s": {}, "prove_stage_ms": {}, "k1_scan_ms": {},
-                 "setup_stage_ms": {}}
+                 "setup_stage_ms": {}, "bench_line_ms": {}, "build": {}}
+    opcodes: dict = {}
 
     def put(table, name, turn, v):
         table.setdefault(name, [None] * len(runs))[turn] = v
@@ -171,6 +191,18 @@ def summary(runs: list[list[dict]]) -> dict:
                 for stage, ms in rec["stage_ms"].items():
                     if stage.startswith("msm") or stage == "h":
                         put(out["prove_stage_ms"], f"{phase} {stage}", turn, ms)
+            if phase == "build" and "ptxas" in rec:
+                sass = rec["sass"] if isinstance(rec["sass"], dict) else {}
+                for name, p in rec["ptxas"].items():
+                    ops = sass.get(name, {})
+                    put(out["build"], name, turn, {
+                        "registers": p.get("registers"), "spill_stores": p.get("spill_stores"),
+                        "sass": sum(ops.values()) if ops else None,
+                        "frnd": sum(n for op, n in ops.items() if op.startswith("FRND"))})
+                    put(opcodes, name, turn, (p.get("registers"), ops))
+            if phase in ("bench_reduce_parts", "bench_bisect_mul"):
+                for line in rec["lines"]:
+                    put(out["bench_line_ms"], line["kernel"], turn, line["ms"])
             if phase == "bench_madd_parts":
                 for part, ms in rec["scan_ms"].items():
                     put(out["k1_scan_ms"], part, turn, ms)
@@ -185,6 +217,8 @@ def summary(runs: list[list[dict]]) -> dict:
             if phase and phase.startswith("setup_full"):
                 for stage, ms in rec["stage_ms"].items():
                     put(out["setup_stage_ms"], f"{phase} {stage}", turn, ms)
+    # turn 0 is the other tree, turn 1 this one
+    out["build_same"] = {name: turns[0] == turns[1] for name, turns in opcodes.items()}
     return out
 
 

@@ -683,6 +683,47 @@ def test_mul_parts_kernels_match_plain(cuda):
         assert _native.LAUNCHES[f"bisect_chain_{kind}"] == 2
 
 
+def test_mul_parts_kernels_at_the_geometry_edges(cuda):
+    """K16 (A, B, C at each T that divides the lanes) and K17 (all six
+    kinds) against their plain versions bit for bit at depth 2, at the
+    launch geometry's edges (the smallest lane count of each T, 4,096 and
+    the bench's 131,072 lanes, a grid of one block a tile) and on extreme
+    digits at 4,096 lanes (every digit 510 in A and 255 in B, zeros, and
+    each against the other); one launch a call."""
+    pf = VP.plane_field()
+    q = BN254.fq.modulus
+    cases = []
+    for lanes in (MP.BISECT_T, max(MP.PARTS_T), 4096, bench_reduce_parts.LANES):
+        rng = random.Random(lanes)
+        va, vb = ([rng.randrange(q) for _ in range(lanes)] for _ in range(2))
+        cases.append((f"{lanes} lanes",
+                      torch.from_numpy(pf.pack_np(va) + pf.P2_COL).to(cuda).contiguous(),
+                      torch.from_numpy(pf.pack_np(vb)).to(cuda).contiguous()))
+    full_a = torch.full((VP.ROWS, 4096), 510.0, device=cuda)
+    full_b = torch.full((VP.ROWS, 4096), 255.0, device=cuda)
+    zeros = torch.zeros((VP.ROWS, 4096), device=cuda)
+    cases += [("maximal", full_a, full_b), ("zeros", zeros, zeros),
+              ("maximal a, zero b", full_a, zeros), ("zero a, maximal b", zeros, full_b)]
+    _native.reset_launches()
+    calls = {}
+    for label, a, b in cases:
+        lanes = a.shape[1]
+        for kind in MP.PARTS_KINDS:
+            for T in MP.PARTS_T:
+                if lanes % T:
+                    continue
+                got = MP.reduce_parts_chain(a, b, kind, T, 2)
+                want = MP.reduce_parts_chain_plain(a, b, kind, T, 2)
+                assert torch.equal(got, want), (label, kind, T)
+                name = f"reduce_parts_chain_{kind}_{T}"
+                calls[name] = calls.get(name, 0) + 1
+        for kind in MP.BISECT_KINDS:
+            got = MP.bisect_chain(a, b, kind, 2)
+            assert torch.equal(got, MP.bisect_chain_plain(a, b, kind, 2)), (label, kind)
+            calls[f"bisect_chain_{kind}"] = calls.get(f"bisect_chain_{kind}", 0) + 1
+    assert {k: v for k, v in _native.LAUNCHES.items() if v} == calls
+
+
 def test_bench_mul_parts_lines_correct(cuda):
     """All lines of bench_reduce_parts and bench_bisect_mul at a small size,
     checked against the plain versions on the card and the host."""
